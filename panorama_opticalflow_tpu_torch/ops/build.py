@@ -1,0 +1,99 @@
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+
+The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared
+library with a plain C interface, loaded with ``ctypes``.  The library is
+named after a hash of the sources and the flags, so the first use after
+any edit rebuilds it; it goes to ``build/kernels/`` at the repository
+root (listed in ``.gitignore``).  Nothing is built when this module is
+imported: ``load()`` builds on first use, which only happens when a
+wrapper in ``ops.kernels`` receives a CUDA tensor.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
+              "-Xcompiler", "-fPIC"]
+
+_lib = None
+build_log = ""        # nvcc's output of the last build (register/smem use)
+build_seconds = 0.0   # wall time of the last build, 0 when it was cached
+
+_p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "pano_warp_tiled": [_p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _f, _p],
+    "pano_median5_diffuse": [_p, _p, _p, _i, _i, _i, _p, _i, _p],
+    "pano_relax_phase_fused": [_p] * 11 + [_i] * 5 + [_p, _i] + [_f] * 5
+    + [_i, _i, _p],
+}
+
+
+def _sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu"))
+                  + glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (os.path.join(cuda_home, "bin", "nvcc"), shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels "
+                       "are built from csrc/ on the machine with the card")
+
+
+def library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources():
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + f.read())
+    return os.path.join(BUILD_DIR, f"libpano_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build() -> str:
+    """Compile csrc/ into the hashed library unless it exists; returns
+    its path."""
+    global build_log, build_seconds
+    path = library_path()
+    if os.path.exists(path):
+        build_seconds = 0.0
+        return path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cu = [s for s in _sources() if s.endswith(".cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, *cu]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    os.replace(tmp, path)  # atomic: a concurrent build never sees half a file
+    build_seconds = time.perf_counter() - t0
+    return path
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first use."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build())
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = _i
+        _lib = lib
+    return _lib

@@ -1,0 +1,321 @@
+"""The hand-written CUDA kernels of the solver's main path, their
+wrappers and their plain PyTorch versions (counterpart of the reference's
+``ops/pallas/kernels.py``).
+
+=========================  ======================================  =====================
+wrapper                    replaces (reference Pallas kernel)      plain version
+=========================  ======================================  =====================
+``warp_tiled``             ``warp_tiled_pallas``                   ``warp_tiled_plain``
+``relax_phase``            ``relax_phase_pallas(fuse_bf=True)``    ``relax_phase_fused_plain``
+``median5_diffuse``        ``median5_diffuse_pallas``              ``median5_diffuse_plain``
+=========================  ======================================  =====================
+
+A wrapper checks its inputs and raises on anything the kernel does not
+take.  For tensors on the CPU it runs the plain version; for CUDA tensors
+it launches the kernel (built from ``csrc/`` on first use, see
+``ops.build``) and raises if the launch is refused -- there is no
+fallback.  Each wrapper counts its kernel launches in its ``launches``
+attribute.  The plain versions compute exactly the kernel's contract,
+border semantics included (edge-replicated windows, not the reflect-101
+borders of the unfused path).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from panorama_opticalflow_tpu_torch.utils.config import FlowParams
+from panorama_opticalflow_tpu_torch.ops.image import gaussian_kernel_1d
+from panorama_opticalflow_tpu_torch.ops.relax_fast import (
+    _pad2, sample_maps, shift_edge, tile_offsets, warp_by_flow_tiled)
+
+WARP_TILE = (64, 128)
+WARP_MARGIN = 8
+WARP_MAX_OFF = 96
+
+
+def _check(name: str, tensors: dict, shapes: dict) -> torch.device:
+    """Same device, float32, contiguous, and the expected shapes."""
+    dev = None
+    for key, t in tensors.items():
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name}: {key} must be a tensor")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: {key} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+        if tuple(t.shape) != tuple(shapes[key]):
+            raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, "
+                             f"expected {tuple(shapes[key])}")
+        if dev is None:
+            dev = t.device
+        elif t.device != dev:
+            raise ValueError(f"{name}: {key} is on {t.device}, not {dev}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    return dev
+
+
+def _launch(name: str, fn, *args) -> None:
+    from panorama_opticalflow_tpu_torch.ops import build
+
+    rc = getattr(build.load(), fn)(*args)
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA kernel launch failed (cudaError "
+                           f"{rc})")
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# 1. tiled flow warp
+# ---------------------------------------------------------------------------
+
+
+def warp_tiled_plain(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """The warp kernel's contract on (B, H, W, C) / (B, H, W, 2)."""
+    return warp_by_flow_tiled(img, flow, *WARP_TILE, WARP_MARGIN,
+                              WARP_MAX_OFF)
+
+
+def warp_tiled(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """W(x) = img(x + flow(x)), bilinear, clamp-to-edge, per-(64, 128)-tile
+    integer offset + separable residual hat passes.  ``img`` (B, H, W, C)
+    and ``flow`` (B, H, W, 2) float32; returns (B, H, W, C)."""
+    if img.dim() != 4 or flow.dim() != 4:
+        raise ValueError("warp_tiled: img (B, H, W, C) and flow (B, H, W, 2)")
+    nb, h, w, c = img.shape
+    dev = _check("warp_tiled", {"img": img, "flow": flow},
+                 {"img": (nb, h, w, c), "flow": (nb, h, w, 2)})
+    if dev.type == "cpu":
+        return warp_tiled_plain(img, flow)
+    off = tile_offsets(flow, *WARP_TILE, WARP_MAX_OFF).contiguous()
+    out = torch.empty_like(img)
+    _launch("warp_tiled", "pano_warp_tiled", img.data_ptr(), flow.data_ptr(),
+            off.data_ptr(), out.data_ptr(), nb, c, h, w, *WARP_TILE,
+            WARP_MARGIN, float(WARP_MARGIN - 1e-3), _stream())
+    warp_tiled.launches += 1
+    return out
+
+
+warp_tiled.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# 2. fused median5 + low-alpha diffusion
+# ---------------------------------------------------------------------------
+
+
+def median5_diffuse_plain(x: torch.Tensor, c: torch.Tensor,
+                          ksize: int = 15, sigma: float = 8.0
+                          ) -> torch.Tensor:
+    """``c * gauss(med5(x)) + (1 - c) * med5(x)`` on (2B, H, W) planes
+    with (B, H, W) coefficients (planes 2b, 2b+1 share c[b]).  The median
+    field covers the blur margin, computed from the edge-replicated input,
+    and the blur is separable (x first, taps in order) over that field."""
+    taps = gaussian_kernel_1d(ksize, sigma)
+    gr = ksize // 2
+    h, w = x.shape[-2:]
+    xp = _pad2(x, gr + 2, gr + 2, gr + 2, gr + 2)
+    mh, mw = h + 2 * gr, w + 2 * gr
+    stack = torch.stack([xp[..., dy:dy + mh, dx:dx + mw]
+                         for dy in range(5) for dx in range(5)])
+    med = torch.kthvalue(stack, 13, dim=0).values
+    acc = torch.zeros(x.shape[:-2] + (mh, w), dtype=x.dtype, device=x.device)
+    for t in range(ksize):
+        acc = acc + float(taps[t]) * med[..., t:t + w]
+    blur = torch.zeros_like(x)
+    for t in range(ksize):
+        blur = blur + float(taps[t]) * acc[..., t:t + h, :]
+    med_c = med[..., gr:gr + h, gr:gr + w]
+    cc = c.repeat_interleave(2, dim=0)
+    return cc * blur + (1.0 - cc) * med_c
+
+
+def median5_diffuse(x: torch.Tensor, c: torch.Tensor, ksize: int = 15,
+                    sigma: float = 8.0) -> torch.Tensor:
+    """Fused per-level median + low-alpha diffusion on (2B, H, W) flow
+    planes with (B, H, W) coefficients ``c = 1 - a0*a1``."""
+    if x.dim() != 3 or x.shape[0] % 2:
+        raise ValueError("median5_diffuse: x must be (2B, H, W)")
+    if ksize % 2 == 0 or not 1 <= ksize <= 31:
+        raise ValueError(f"median5_diffuse: odd ksize <= 31, got {ksize}")
+    p2, h, w = x.shape
+    dev = _check("median5_diffuse", {"x": x, "c": c},
+                 {"x": (p2, h, w), "c": (p2 // 2, h, w)})
+    if dev.type == "cpu":
+        return median5_diffuse_plain(x, c, ksize, sigma)
+    taps = np.ascontiguousarray(gaussian_kernel_1d(ksize, sigma))
+    out = torch.empty_like(x)
+    _launch("median5_diffuse", "pano_median5_diffuse", x.data_ptr(),
+            c.data_ptr(), out.data_ptr(), p2, h, w,
+            taps.ctypes.data_as(ctypes.c_void_p), ksize, _stream())
+    median5_diffuse.launches += 1
+    return out
+
+
+median5_diffuse.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# 3. relax phase with the fused blurred-flow target
+# ---------------------------------------------------------------------------
+
+
+def _reg_w(params: FlowParams, w: int) -> tuple[float, float]:
+    """(vreg/w, hreg/w) rounded to float32, as the reference kernel takes
+    them."""
+    return (float(np.float32(params.vertical_regularization_coef / w)),
+            float(np.float32(params.horizontal_regularization_coef / w)))
+
+
+def relax_phase_fused_plain(fx, fy, bx, by, w1x, w1y, i0x, i0y, mask,
+                            params: FlowParams, iters: int, D: int):
+    """The relax kernel's contract on (B, H, W) planes: returns (fx', fy').
+
+    Every plane is edge-padded by halo = iters + D + 2 and the padded
+    plane is iterated as one window: shifts replicate the window edge
+    (no validity masks), the x passes edge-extend the offsets, and the
+    regularisation target is the separable Gaussian (x first) of the
+    f_base planes edge-padded by a further kernel radius.  The output
+    crops the halo.  The kernel runs the same math per output tile on
+    the tile's halo window; the two agree wherever the halo covers the
+    iterations' reach."""
+    nb, h, w = fx.shape
+    halo = iters + D + 2
+    kw = params.blurred_flow_kernel_width
+    gr = kw // 2
+    taps = gaussian_kernel_1d(kw, params.blurred_flow_sigma)
+
+    def pad(a, n):
+        return _pad2(a, n, n, n, n)
+
+    fxp, fyp, i0xp, i0yp, mp = (pad(a, halo) for a in (fx, fy, i0x, i0y,
+                                                       mask))
+    hp, wp = h + 2 * halo, w + 2 * halo
+
+    def blur_valid(a):
+        acc = torch.zeros((nb, hp + 2 * gr, wp), dtype=a.dtype,
+                          device=a.device)
+        for t in range(kw):
+            acc = acc + float(taps[t]) * a[..., t:t + wp]
+        out = torch.zeros((nb, hp, wp), dtype=a.dtype, device=a.device)
+        for t in range(kw):
+            out = out + float(taps[t]) * acc[..., t:t + hp, :]
+        return out
+
+    bxg, byg = pad(bx, halo + gr), pad(by, halo + gr)
+    bfx, bfy = blur_valid(bxg), blur_valid(byg)
+    bxb = bxg[..., gr:gr + hp, gr:gr + wp]
+    byb = byg[..., gr:gr + hp, gr:gr + wp]
+    w1 = torch.stack([w1x, w1y], dim=1)
+    if params.w1_bf16:
+        w1 = w1.to(torch.bfloat16).to(torch.float32)
+    w1_pad = pad(w1, halo + D + 1)
+    vreg_w, hreg_w = _reg_w(params, w)
+    smooth = params.smoothness_coef
+    step = params.gradient_step_size
+
+    def err(sx, sy, cfx, cfy):
+        d0 = i0xp - sx
+        d1 = i0yp - sy
+        data = torch.sqrt(d0 * d0 + d1 * d1)
+        fdx = bfx - cfx
+        fdy = bfy - cfy
+        sm = torch.sqrt(fdx * fdx + fdy * fdy)
+        return data + smooth * sm + vreg_w * torch.abs(cfy) \
+            + hreg_w * torch.abs(cfx)
+
+    for _ in range(iters):
+        S, nbrs, _, _ = sample_maps(w1_pad, fxp - bxb, fyp - byb, D, True,
+                                    False)
+        best_fx, best_fy = fxp, fyp
+        best_sx, best_sy = S[:, 0], S[:, 1]
+        best_e = err(best_sx, best_sy, fxp, fyp)
+        for key, dy, dx in (("xp", 0, 1), ("yp", 1, 0), ("xm", 0, -1),
+                            ("ym", -1, 0)):
+            cfx = shift_edge(fxp, dy, dx)
+            cfy = shift_edge(fyp, dy, dx)
+            samp = shift_edge(nbrs[key], dy, dx)
+            e = err(samp[:, 0], samp[:, 1], cfx, cfy)
+            take = e < best_e
+            best_fx = torch.where(take, cfx, best_fx)
+            best_fy = torch.where(take, cfy, best_fy)
+            best_e = torch.where(take, e, best_e)
+            if params.fold_descent_sample:
+                best_sx = torch.where(take, samp[:, 0], best_sx)
+                best_sy = torch.where(take, samp[:, 1], best_sy)
+
+        fold = params.fold_descent_sample
+        S2, _, Gx, Gy = sample_maps(w1_pad, best_fx - bxb, best_fy - byb, D,
+                                    False, True, with_sample=not fold)
+        s2x, s2y = (best_sx, best_sy) if fold else (S2[:, 0], S2[:, 1])
+        d0 = i0xp - s2x
+        d1 = i0yp - s2y
+        q = torch.sqrt(d0 * d0 + d1 * d1)
+        inv_q = torch.where(q > 1e-12, 1.0 / q, torch.zeros_like(q))
+        ddx = -(d0 * Gx[:, 0] + d1 * Gx[:, 1]) * inv_q
+        ddy = -(d0 * Gy[:, 0] + d1 * Gy[:, 1]) * inv_q
+        fdx = bfx - best_fx
+        fdy = bfy - best_fy
+        sv = torch.sqrt(fdx * fdx + fdy * fdy)
+        inv_s = torch.where(sv > 1e-12, 1.0 / sv, torch.zeros_like(sv))
+        gx = ddx + smooth * (-fdx * inv_s) + hreg_w * torch.sign(best_fx)
+        gy = ddy + smooth * (-fdy * inv_s) + vreg_w * torch.sign(best_fy)
+        upd = mp > 0
+        fxp = torch.where(upd, best_fx - step * gx, fxp)
+        fyp = torch.where(upd, best_fy - step * gy, fyp)
+    crop = np.s_[..., halo:halo + h, halo:halo + w]
+    return fxp[crop], fyp[crop]
+
+
+def relax_phase(fx, fy, bx, by, w1x, w1y, i0x, i0y, mask,
+                params: FlowParams, iters: int, D: int):
+    """``iters`` relaxation iterations on (B, H, W) float32 planes with the
+    blurred-flow target computed from ``bx``/``by`` (f_base) in the
+    kernel (single-phase levels).  ``mask`` is 1.0 where updatable.
+    Returns (fx', fy')."""
+    if fx.dim() != 3:
+        raise ValueError("relax_phase: planes must be (B, H, W)")
+    if not 1 <= D <= 3 or iters < 1:
+        raise ValueError(f"relax_phase: needs 1 <= D <= 3 and iters >= 1, "
+                         f"got D={D}, iters={iters}")
+    kw = params.blurred_flow_kernel_width
+    if kw % 2 == 0 or not 1 <= kw <= 31:
+        raise ValueError(f"relax_phase: odd blur width <= 31, got {kw}")
+    planes = {"fx": fx, "fy": fy, "bx": bx, "by": by, "w1x": w1x,
+              "w1y": w1y, "i0x": i0x, "i0y": i0y, "mask": mask}
+    dev = _check("relax_phase", planes, {k: fx.shape for k in planes})
+    if dev.type == "cpu":
+        return relax_phase_fused_plain(fx, fy, bx, by, w1x, w1y, i0x, i0y,
+                                       mask, params, iters, D)
+    nb, h, w = fx.shape
+    ofx = torch.empty_like(fx)
+    ofy = torch.empty_like(fy)
+    taps = np.ascontiguousarray(
+        gaussian_kernel_1d(kw, params.blurred_flow_sigma))
+    vreg_w, hreg_w = _reg_w(params, w)
+    _launch("relax_phase", "pano_relax_phase_fused",
+            *(t.data_ptr() for t in planes.values()), ofx.data_ptr(),
+            ofy.data_ptr(), nb, h, w, iters, D,
+            taps.ctypes.data_as(ctypes.c_void_p), kw, float(D - 1e-3),
+            params.smoothness_coef, params.gradient_step_size, vreg_w,
+            hreg_w, int(params.fold_descent_sample), int(params.w1_bf16),
+            _stream())
+    relax_phase.launches += 1
+    return ofx, ofy
+
+
+relax_phase.launches = 0
+
+KERNELS = (warp_tiled, relax_phase, median5_diffuse)
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0

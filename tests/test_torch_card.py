@@ -1,0 +1,112 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card.  This file imports no JAX, so it runs on a machine with a card and
+no JAX:
+
+    python -m pytest --noconftest tests/test_torch_card.py -q
+
+Every test skips when torch.cuda.is_available() is false.  Tolerances as
+in chip_smoke.py: warp 2e-6 and median5+diffuse 1e-5 (both kernels build
+with -fmad=false and keep the plain version's tap order); relax 1e-5 on
+all but < 1e-4 of the pixels, where a 1-ulp difference may flip a
+strict-< candidate take.
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from panorama_opticalflow_tpu_torch import (StitchConfig,
+                                            flow_params_by_name, ssim,
+                                            synthesize_fisheye_set, to_numpy,
+                                            to_torch)
+from panorama_opticalflow_tpu_torch.models import pipeline
+from panorama_opticalflow_tpu_torch.ops import image as im
+from panorama_opticalflow_tpu_torch.ops import kernels as tk
+
+GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden",
+                      "six_96x320_s7.npz")
+
+
+@pytest.fixture
+def rng():
+    return np.random.default_rng(0)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (python3 chip_smoke.py runs these "
+                    "checks at the headline shapes)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _smooth_flow(h, w):
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    fx = 20 * np.sin(yy / 37.0) + 5 * np.cos(xx / 53.0)
+    fy = 8 * np.cos(yy / 29.0) - 3 * np.sin(xx / 41.0)
+    return np.stack([fx, fy], -1).astype(np.float32)
+
+
+def test_warp_kernel_matches_plain(rng, cuda):
+    h, w = 203, 517
+    img = to_torch(rng.standard_normal((2, h, w, 2)).astype(np.float32),
+                   cuda)
+    flow = to_torch(np.stack([_smooth_flow(h, w), -_smooth_flow(h, w)]),
+                    cuda)
+    n = tk.warp_tiled.launches
+    got = tk.warp_tiled(img, flow)
+    torch.cuda.synchronize()
+    assert tk.warp_tiled.launches == n + 1
+    assert (got - tk.warp_tiled_plain(img, flow)).abs().max().item() <= 2e-6
+
+
+def test_median5_diffuse_kernel_matches_plain(rng, cuda):
+    x = to_torch(rng.standard_normal((4, 45, 203)).astype(np.float32), cuda)
+    c = to_torch(rng.random((2, 45, 203)).astype(np.float32), cuda)
+    got = tk.median5_diffuse(x, c)
+    torch.cuda.synchronize()
+    assert (got - tk.median5_diffuse_plain(x, c)).abs().max().item() <= 1e-5
+    # with c = 0 the output is the median alone: bit-exact cv::medianBlur
+    zero = torch.zeros_like(c)
+    assert torch.equal(tk.median5_diffuse(x, zero), im.median5(x))
+
+
+def test_relax_kernel_matches_plain(rng, cuda):
+    params = flow_params_by_name("pixflow_low_fast")
+    mk = lambda s=0.1: to_torch(
+        rng.standard_normal((2, 150, 300)).astype(np.float32) * s, cuda)
+    fx, fy = mk(0.5), mk(0.5)
+    mask = to_torch((rng.random((2, 150, 300)) > 0.1).astype(np.float32),
+                    cuda)
+    planes = [fx, fy, fx + mk(), fy + mk(), mk(), mk(), mk(), mk(), mask]
+    got = torch.stack(tk.relax_phase(*planes, params, 3, 2))
+    torch.cuda.synchronize()
+    ref = torch.stack(tk.relax_phase_fused_plain(*planes, params, 3, 2))
+    diff = (got - ref).abs().amax(dim=0)
+    assert (diff > 1e-5).float().mean().item() < 1e-4
+
+
+def test_wrappers_raise_on_what_the_kernels_do_not_take(rng, cuda):
+    x = to_torch(rng.standard_normal((4, 40, 70)).astype(np.float32), cuda)
+    c = to_torch(rng.random((2, 40, 70)).astype(np.float32), cuda)
+    with pytest.raises(ValueError):     # not contiguous
+        tk.median5_diffuse(x.transpose(1, 2).contiguous().transpose(1, 2), c)
+    with pytest.raises(ValueError):     # planes on two devices
+        tk.median5_diffuse(x, c.cpu())
+    with pytest.raises(TypeError):
+        tk.median5_diffuse(x.half(), c)
+
+
+def test_stitch_six_on_card_meets_golden_gate(cuda):
+    photos, top = synthesize_fisheye_set(96, 320, n=5, seed=7)
+    out = to_numpy(pipeline.stitch_six(
+        photos, top, StitchConfig(flow_alg="pixflow_low"), device=cuda))
+    golden = np.load(GOLDEN)["output"]
+    np.testing.assert_array_equal(out[..., 3], golden[..., 3])
+    assert ssim(out, golden) >= 0.995
+    diff = np.abs(out.astype(np.int32) - golden.astype(np.int32))
+    assert (diff > 8).mean() < 0.01

@@ -4,12 +4,13 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from panorama_opticalflow_tpu_torch/
-csrc/, then runs five phases and prints one JSON object per phase:
+csrc/, then runs seven phases and prints one JSON object per phase line:
 
   A  the card (nvidia-smi name and power limit) and the kernel build;
-  B  each kernel against its plain PyTorch version on the card, at the
-     9000x4000 headline's finest-level shapes and at a ragged small shape,
-     with kernel and plain median times (CUDA events);
+  B  each of the five kernels against its plain PyTorch version on the
+     card, at the 9000x4000 headline's finest-level shapes and at a ragged
+     small shape, with kernel and plain median times (CUDA events); the
+     unfused relax at 2 and 3 iterations;
   C  the main path: stitch_six of the 6-photo 9000x4000 synthetic set
      (seed 0) with pixflow_low_fast, once warm and once timed; latency,
      peak device memory, each kernel's launch count against the count the
@@ -18,9 +19,18 @@ csrc/, then runs five phases and prints one JSON object per phase:
      the kernels and with use_pallas=False (the plain path on the card):
      both times and the endpoint error between them;
   E  the port on the card against tests/golden/six_96x320_s7.npz at the
-     golden gate of tests/test_golden.py.
+     golden gate of tests/test_golden.py;
+  F  the 36 MP schedules of tools/fidelity_36mp.py with pixflow_low:
+     production (warmed once, then timed), sched22 (2 phases x 2
+     iterations) and unfused (fuse_level_blurs=False), each timed with its
+     launch counts, footprint, and RGB SSIM and bit-identical share
+     against production;
+  G  the search init: pixflow_search_20_fast at 9000x4000 (warm, then
+     timed), and tests/golden/six_64x256_s3_search20.npz at phase E's gate.
 
-Then a line with the kernel table, a line with nvidia-smi's name and power
+Every timed stitch (C, F, G) runs with the launch counts set to 0 just
+before it and read just after; the kernel table sums those counts.  Then a
+line with the kernel table, a line with nvidia-smi's name and power
 limit, and as the last line {"ok": true, "device": {...}}.  Any failed
 check raises, so the exit code is non-zero and no result line is printed.
 It needs one CUDA card and exits non-zero at once without one.  Float32
@@ -48,7 +58,13 @@ RELAX_MAX_SHARE = 1e-4
 # the fused and the unfused level differ in the <= 7 px blur-border band
 # (edge-replicated vs reflect-101) and in flipped takes
 EPE_MEAN_TOL = 0.05
+# a schedule knob against production at 36 MP (the JAX package recorded
+# 0.9997+ for both knobs)
+SCHEDULE_SSIM_MIN = 0.995
 HEADLINE = (4000, 9000)
+# phase B: a ragged shape, then the finest level of a 4000 x 3584 pair
+# window
+B_SHAPES = (("ragged", (2, 45, 203)), ("headline", (2, 2000, 1792)))
 # crop.plan_chain_windows of the seed-0 headline set: (roll, width,
 # gather_safe) per pair
 HEADLINE_WINDOWS = [(8100, 3584, False), (900, 3584, True),
@@ -58,7 +74,13 @@ KERNEL_FILES = {
     "warp_tiled": ("csrc/warp_tiled.cu", 986),
     "relax_phase": ("csrc/relax_phase.cu", 732),
     "median5_diffuse": ("csrc/median5_diffuse.cu", 321),
+    "relax_phase_unfused": ("csrc/relax_phase.cu", 732),
+    "median5": ("csrc/median5.cu", 193),
 }
+# the 36 MP fidelity harness's schedule knobs (tools/fidelity_36mp.py)
+SCHEDULES = {"production": {},
+             "sched22": {"relax_phases": 2, "relax_iters_per_phase": 2},
+             "unfused": {"fuse_level_blurs": False}}
 
 
 def emit(obj) -> None:
@@ -142,6 +164,8 @@ def phase_b(dev) -> dict:
 
     results = {name: {"max_abs_err": 0.0} for name in KERNEL_FILES}
 
+    # the table keeps the last headline time: the unfused relax at 3
+    # iterations, the production count of the fused one
     def record(name, tag, dims, err, tol, kernel_fn, plain_fn, extra=()):
         rec = {"phase": "B", "kernel": name, "shape": tag, "dims": dims,
                "max_abs_err": err, "tol": tol, **dict(extra)}
@@ -153,9 +177,7 @@ def phase_b(dev) -> dict:
                                            results[name]["max_abs_err"])
         emit(rec)
 
-    # ragged, then the finest level of a 4000 x 3584 pair window
-    for tag, (b, h, w) in (("ragged", (2, 45, 203)),
-                           ("headline", (2, 2000, 1792))):
+    for tag, (b, h, w) in B_SHAPES:
         img = planes((b, h, w, 2), 1.0)
         flow = smooth_flow(b, h, w)
         got = kernels.warp_tiled(img, flow)
@@ -176,6 +198,15 @@ def phase_b(dev) -> dict:
                lambda: kernels.median5_diffuse_plain(x, c))
         check(err <= MEDIAN_TOL, f"median5_diffuse {tag}: {err}")
 
+        got = kernels.median5(x)
+        torch.cuda.synchronize()
+        exact = bool(torch.equal(got, kernels.median5_plain(x)))
+        err = (got - kernels.median5_plain(x)).abs().max().item()
+        record("median5", tag, [2 * b, h, w], err, 0.0,
+               lambda: kernels.median5(x),
+               lambda: kernels.median5_plain(x), (("bit_exact", exact),))
+        check(exact, f"median5 {tag}: not bit-identical ({err})")
+
         shape = (b, h, w)
         fx, fy = planes(shape, 0.5), planes(shape, 0.5)
         mask = torch.from_numpy(
@@ -195,90 +226,140 @@ def phase_b(dev) -> dict:
                                                        D),
                (("share_over_tol", share), ("max_share", RELAX_MAX_SHARE)))
         check(share < RELAX_MAX_SHARE, f"relax_phase {tag}: share {share}")
-        del img, flow, got, ref, x, c, rp, diff
+
+        up = rp[:8] + [planes(shape, 0.5), planes(shape, 0.5), mask]
+        for it in (2, 3):
+            got = torch.stack(kernels.relax_phase_unfused(*up, params, it, D))
+            torch.cuda.synchronize()
+            ref = torch.stack(kernels.relax_phase_unfused_plain(*up, params,
+                                                                it, D))
+            diff = (got - ref).abs().amax(dim=0)
+            err = diff.max().item()
+            share = (diff > RELAX_TOL).float().mean().item()
+            record("relax_phase_unfused", tag, list(shape), err, RELAX_TOL,
+                   lambda it=it: kernels.relax_phase_unfused(*up, params,
+                                                             it, D),
+                   lambda it=it: kernels.relax_phase_unfused_plain(
+                       *up, params, it, D),
+                   (("iters", it), ("share_over_tol", share),
+                    ("max_share", RELAX_MAX_SHARE)))
+            check(share < RELAX_MAX_SHARE,
+                  f"relax_phase_unfused {tag} iters={it}: share {share}")
+        del img, flow, got, ref, x, c, rp, up, diff
     torch.cuda.empty_cache()
     return results
 
 
 def expected_launches(windows, canvas_h: int, params) -> dict:
-    """Kernel launches of one chain: the warp once per fast level, the
-    relax and median5+diffuse kernels once per fused level (H*W >=
-    pallas_min_pixels).  With a raised pyramid floor (_fast) every level
-    of pyramid_sizes is a fast level; otherwise the coarsest is exact."""
+    """Kernel launches of one chain.  Per fast level the warp runs once per
+    phase; a level of at least pallas_min_pixels runs the fused relax and
+    median5+diffuse once if it is a single-phase fused level, else the
+    unfused relax and median5 once per phase.  With a raised pyramid floor
+    (_fast) every level of pyramid_sizes is a fast level; otherwise the
+    coarsest is exact."""
     from panorama_opticalflow_tpu_torch.models import pixflow
 
-    warp = fused = 0
+    phases = params.relax_phases
+    fused = phases == 1 and params.fuse_level_blurs
+    n = dict.fromkeys(KERNEL_FILES, 0)
     for _, width, _ in windows:
         sizes = pixflow.pyramid_sizes(int(canvas_h * params.downscale_factor),
                                       int(width * params.downscale_factor),
                                       params)
         fast = sizes if params.pyr_stop_size else sizes[:-1]
-        warp += len(fast)
-        fused += sum(h * w >= params.pallas_min_pixels for h, w in fast)
-    return {"warp_tiled": warp, "relax_phase": fused,
-            "median5_diffuse": fused}
+        big = sum(h * w >= params.pallas_min_pixels for h, w in fast)
+        n["warp_tiled"] += phases * len(fast)
+        if fused:
+            n["relax_phase"] += big
+            n["median5_diffuse"] += big
+        else:
+            n["relax_phase_unfused"] += phases * big
+            n["median5"] += phases * big
+    return n
 
 
-def phase_c(dev) -> tuple[dict, tuple]:
-    """The main path at 9000 x 4000; returns the launch counts and the
-    first pair's window inputs for phase D."""
+def drive(photos_d, top_d, cfg, dev, warm: bool):
+    """One timed stitch_six (after a warm one if ``warm``), with the launch
+    counts and the peak memory reset just before it and read just after.
+    Returns the output and a record of the measurements, including
+    whether the output's alpha footprint is exactly the union of the
+    inputs'."""
     import torch
 
-    import panorama_opticalflow_tpu_torch as port
-    from panorama_opticalflow_tpu_torch.models import crop, pipeline
-    from panorama_opticalflow_tpu_torch.models import stitcher
+    from panorama_opticalflow_tpu_torch.models import pipeline
     from panorama_opticalflow_tpu_torch.ops import kernels
 
-    h, w = HEADLINE
-    cfg = port.StitchConfig(flow_alg="pixflow_low_fast")
-    t0 = time.perf_counter()
-    photos, top = port.synthesize_fisheye_set(h, w, n=5, seed=0)
-    photos_d = [port.to_torch(p, dev) for p in photos]
-    top_d = port.to_torch(top, dev)
-    del photos, top
-    setup_s = time.perf_counter() - t0
-    windows = crop.plan_chain_windows(photos_d, top_d, cfg)
-    check(windows == HEADLINE_WINDOWS, f"headline windows {windows}")
-    expected = expected_launches(windows, h, cfg.flow_params)
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = pipeline.stitch_six(photos_d, top_d, cfg, device=dev)
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-    del out
+    rec = {}
+    if warm:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipeline.stitch_six(photos_d, top_d, cfg, device=dev)
+        torch.cuda.synchronize()
+        rec["warm_s"] = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     out = pipeline.stitch_six(photos_d, top_d, cfg, device=dev)
     torch.cuda.synchronize()
-    latency_s = time.perf_counter() - t0
-    launches = {k.__name__: k.launches for k in kernels.KERNELS}
-    peak = torch.cuda.max_memory_allocated()
-
+    rec["latency_s"] = time.perf_counter() - t0
+    rec["launches"] = {k.__name__: k.launches for k in kernels.KERNELS}
+    rec["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
     union = top_d[..., 3] > 0
     for p in photos_d:
         union |= p[..., 3] > 0
-    footprint_ok = bool(torch.equal(out[..., 3] > 0, union))
-    emit({"phase": "C", "canvas": [h, w], "flow_alg": cfg.flow_alg,
-          "windows": windows, "setup_s": setup_s, "warm_s": warm_s,
-          "latency_s": latency_s, "max_memory_allocated_bytes": peak,
-          "launches": launches, "expected_launches": expected,
-          "alpha_footprint_exact": footprint_ok,
-          "out_shape": list(out.shape), "out_dtype": str(out.dtype)})
+    rec["alpha_footprint_exact"] = bool(torch.equal(out[..., 3] > 0, union))
+    return out, rec
+
+
+def check_run(tag: str, out, rec, expected: dict, h: int, w: int) -> None:
+    import torch
+
     check(tuple(out.shape) == (h, w, 4) and out.dtype == torch.uint8,
-          "stitch_six output shape/dtype")
-    for name, n in launches.items():
-        check(n == expected[name] > 0,
-              f"{name}: {n} launches, expected {expected[name]}")
-    check(footprint_ok, "output alpha footprint != union of input alphas")
+          f"{tag}: stitch_six output shape/dtype")
+    for name, n in rec["launches"].items():
+        check(n == expected[name],
+              f"{tag} {name}: {n} launches, expected {expected[name]}")
+    check(rec["alpha_footprint_exact"],
+          f"{tag}: output alpha footprint != union of input alphas")
+
+
+def headline_set(dev):
+    import panorama_opticalflow_tpu_torch as port
+
+    h, w = HEADLINE
+    t0 = time.perf_counter()
+    photos, top = port.synthesize_fisheye_set(h, w, n=5, seed=0)
+    photos_d = [port.to_torch(p, dev) for p in photos]
+    top_d = port.to_torch(top, dev)
+    return photos_d, top_d, time.perf_counter() - t0
+
+
+def phase_c(dev, photos_d, top_d, setup_s) -> tuple[dict, tuple]:
+    """The main path at 9000 x 4000; returns the launch counts and the
+    first pair's window inputs for phase D."""
+    import panorama_opticalflow_tpu_torch as port
+    from panorama_opticalflow_tpu_torch.models import crop, stitcher
+
+    h, w = HEADLINE
+    cfg = port.StitchConfig(flow_alg="pixflow_low_fast")
+    windows = crop.plan_chain_windows(photos_d, top_d, cfg)
+    check(windows == HEADLINE_WINDOWS, f"headline windows {windows}")
+    expected = expected_launches(windows, h, cfg.flow_params)
+    out, rec = drive(photos_d, top_d, cfg, dev, warm=True)
+    emit({"phase": "C", "canvas": [h, w], "flow_alg": cfg.flow_alg,
+          "windows": windows, "setup_s": setup_s, **rec,
+          "expected_launches": expected,
+          "out_shape": list(out.shape), "out_dtype": str(out.dtype)})
+    check_run("phase C", out, rec, expected, h, w)
+    for name in ("warp_tiled", "relax_phase", "median5_diffuse"):
+        check(rec["launches"][name] > 0, f"phase C: {name} never launched")
 
     roll, width, _ = windows[0]
     cmap = stitcher.match_images(photos_d[0], top_d)
     pair = tuple(stitcher.window_cols(stitcher.extract_overlap(img, cmap),
                                       roll, width)
                  for img in (photos_d[0], top_d))
-    return launches, pair
+    return rec["launches"], pair
 
 
 def phase_d(pair) -> None:
@@ -313,26 +394,155 @@ def phase_d(pair) -> None:
     check(epe_mean <= EPE_MEAN_TOL, f"phase D mean EPE {epe_mean}")
 
 
-def phase_e(dev) -> None:
-    """The pinned 96 x 320 golden (pixflow_low, seed 7) at the gate of
-    tests/test_golden.py::_check."""
+def ssim_card(a, b) -> float:
+    """utils.data.ssim computed on the card: the same 11 x 11 Gaussian
+    window (sigma 1.5), applied separably in float64, 'valid' borders,
+    mean over channels.  Phase E holds it equal to the host version."""
+    import numpy as np
+    import torch
+
+    i = np.arange(11) - 5.0
+    k = np.exp(-(i ** 2) / (2 * 1.5 * 1.5))
+    k = torch.tensor(k / k.sum(), dtype=torch.float64, device=a.device)
+
+    def filt(x):
+        h, w = x.shape
+        rows = sum(k[t] * x[t:t + h - 10] for t in range(11))
+        return sum(k[t] * rows[:, t:t + w - 10] for t in range(11))
+
+    c1, c2 = (0.01 * 255) ** 2, (0.03 * 255) ** 2
+    a = a.to(torch.float64)
+    b = b.to(torch.float64)
+    a, b = (a, b) if a.dim() == 3 else (a[..., None], b[..., None])
+    vals = []
+    for ch in range(a.shape[2]):
+        x, y = a[..., ch], b[..., ch]
+        mx, my = filt(x), filt(y)
+        mxx, myy, mxy = mx * mx, my * my, mx * my
+        sx = filt(x * x) - mxx
+        sy = filt(y * y) - myy
+        sxy = filt(x * y) - mxy
+        s = ((2 * mxy + c1) * (2 * sxy + c2)) / ((mxx + myy + c1)
+                                                 * (sx + sy + c2))
+        vals.append(s.mean().item())
+    return float(np.mean(vals))
+
+
+def golden_gate(out, golden) -> dict:
+    """tests/test_golden.py::_check on numpy arrays: alpha exact, SSIM >=
+    0.995, < 1 % of the values off by more than 8."""
     import numpy as np
 
     import panorama_opticalflow_tpu_torch as port
-    from panorama_opticalflow_tpu_torch.models import pipeline
 
-    golden = np.load(os.path.join(ROOT, "tests", "golden",
-                                  "six_96x320_s7.npz"))["output"]
-    photos, top = port.synthesize_fisheye_set(96, 320, n=5, seed=7)
-    out = port.to_numpy(pipeline.stitch_six(
-        photos, top, port.StitchConfig(flow_alg="pixflow_low"), device=dev))
     alpha_ok = bool(np.array_equal(out[..., 3], golden[..., 3]))
     s = port.ssim(out, golden)
     off8 = float((np.abs(out.astype(np.int32)
                          - golden.astype(np.int32)) > 8).mean())
-    emit({"phase": "E", "golden": "six_96x320_s7", "alpha_exact": alpha_ok,
-          "ssim": s, "share_off_by_more_than_8": off8})
-    check(alpha_ok and s >= 0.995 and off8 < 0.01, "phase E golden gate")
+    return {"alpha_exact": alpha_ok, "ssim": s,
+            "share_off_by_more_than_8": off8,
+            "gate_ok": alpha_ok and s >= 0.995 and off8 < 0.01}
+
+
+def load_golden(name: str):
+    import numpy as np
+
+    return np.load(os.path.join(ROOT, "tests", "golden",
+                                f"{name}.npz"))["output"]
+
+
+def phase_e(dev) -> None:
+    """The pinned 96 x 320 golden (pixflow_low, seed 7) at the gate of
+    tests/test_golden.py::_check; also checks ssim_card against the host
+    SSIM on it."""
+    import torch
+
+    import panorama_opticalflow_tpu_torch as port
+    from panorama_opticalflow_tpu_torch.models import pipeline
+
+    golden = load_golden("six_96x320_s7")
+    photos, top = port.synthesize_fisheye_set(96, 320, n=5, seed=7)
+    out = pipeline.stitch_six(photos, top,
+                              port.StitchConfig(flow_alg="pixflow_low"),
+                              device=dev)
+    rec = golden_gate(port.to_numpy(out), golden)
+    s_card = ssim_card(out, torch.from_numpy(golden).to(dev))
+    emit({"phase": "E", "golden": "six_96x320_s7", **rec,
+          "ssim_card": s_card})
+    check(rec["gate_ok"], "phase E golden gate")
+    check(abs(s_card - rec["ssim"]) < 1e-9, "ssim_card != host ssim")
+
+
+def phase_f(dev, photos_d, top_d) -> dict:
+    """pixflow_low at 9000 x 4000 under the fidelity harness's schedules;
+    returns each run's launch counts."""
+    import torch
+
+    import panorama_opticalflow_tpu_torch as port
+    from panorama_opticalflow_tpu_torch.models import crop
+    from panorama_opticalflow_tpu_torch.utils.config import with_flow_params
+
+    h, w = HEADLINE
+    base = port.StitchConfig(flow_alg="pixflow_low")
+    windows = crop.plan_chain_windows(photos_d, top_d, base)
+    prod, launches = None, {}
+    for knob, changes in SCHEDULES.items():
+        cfg = with_flow_params(base, **changes)
+        params = cfg.flow_params
+        expected = expected_launches(windows, h, params)
+        out, rec = drive(photos_d, top_d, cfg, dev, warm=prod is None)
+        if prod is None:
+            prod = out
+        else:
+            rec["ssim_rgb_vs_production"] = ssim_card(out[..., :3],
+                                                      prod[..., :3])
+            rec["bit_same_share_vs_production"] = \
+                (out == prod).double().mean().item()
+        emit({"phase": "F", "schedule": knob, "flow_alg": base.flow_alg,
+              "relax_phases": params.relax_phases,
+              "relax_iters_per_phase": params.relax_iters_per_phase,
+              "fuse_level_blurs": params.fuse_level_blurs,
+              "windows": windows, **rec, "expected_launches": expected})
+        check_run(f"phase F {knob}", out, rec, expected, h, w)
+        if knob != "production":
+            check(rec["ssim_rgb_vs_production"] >= SCHEDULE_SSIM_MIN,
+                  f"phase F {knob}: SSIM vs production "
+                  f"{rec['ssim_rgb_vs_production']}")
+            for name in ("relax_phase_unfused", "median5"):
+                check(rec["launches"][name] > 0,
+                      f"phase F {knob}: {name} never launched")
+        launches[knob] = rec["launches"]
+        del out
+    del prod
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_g(dev, photos_d, top_d) -> dict:
+    """The search init: pixflow_search_20_fast at 9000 x 4000 and the
+    search20 golden; returns the timed run's launch counts."""
+    import panorama_opticalflow_tpu_torch as port
+    from panorama_opticalflow_tpu_torch.models import crop, pipeline
+
+    h, w = HEADLINE
+    cfg = port.StitchConfig(flow_alg="pixflow_search_20_fast")
+    windows = crop.plan_chain_windows(photos_d, top_d, cfg)
+    expected = expected_launches(windows, h, cfg.flow_params)
+    out, rec = drive(photos_d, top_d, cfg, dev, warm=True)
+    emit({"phase": "G", "flow_alg": cfg.flow_alg,
+          "search_distance": cfg.flow_params.search_distance,
+          "windows": windows, **rec, "expected_launches": expected})
+    check_run("phase G", out, rec, expected, h, w)
+    del out
+
+    photos, top = port.synthesize_fisheye_set(64, 256, n=5, seed=3)
+    small = port.to_numpy(pipeline.stitch_six(
+        photos, top, port.StitchConfig(flow_alg="pixflow_search_20"),
+        device=dev))
+    gate = golden_gate(small, load_golden("six_64x256_s3_search20"))
+    emit({"phase": "G", "golden": "six_64x256_s3_search20", **gate})
+    check(gate["gate_ok"], "phase G search20 golden gate")
+    return rec["launches"]
 
 
 def main() -> None:
@@ -348,12 +558,18 @@ def main() -> None:
 
     phase_a(smi)
     results = phase_b(dev)
-    launches, pair = phase_c(dev)
+    photos_d, top_d, setup_s = headline_set(dev)
+    launches_c, pair = phase_c(dev, photos_d, top_d, setup_s)
     torch.cuda.empty_cache()
     phase_d(pair)
     del pair
     torch.cuda.empty_cache()
     phase_e(dev)
+    counts = [launches_c, *phase_f(dev, photos_d, top_d).values(),
+              phase_g(dev, photos_d, top_d)]
+    launches = {name: sum(c[name] for c in counts) for name in KERNEL_FILES}
+    for name, n in launches.items():
+        check(n > 0, f"{name} was never launched on a main path")
 
     emit({"kernels": [
         {"name": name, "route": "cuda",

@@ -32,6 +32,47 @@ __device__ __forceinline__ float dhat(float t) {
   return fabsf(t) < 1.f ? -sgn(t) : 0.f;
 }
 
+__device__ __forceinline__ void cswap(float& a, float& b) {
+  const float lo = fminf(a, b), hi = fmaxf(a, b);
+  a = lo;
+  b = hi;
+}
+
+// 13th smallest of v[0..24] (the 5x5 median): a fully unrolled 32-way
+// bitonic sort in registers, v[25..31] padded with +inf by the caller.
+// Any correct selection network gives the exact median.
+__device__ __forceinline__ float median25(float (&v)[32]) {
+#pragma unroll
+  for (int k = 1; k < 32; k <<= 1) {
+#pragma unroll
+    for (int j = k; j >= 1; j >>= 1) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int ixj = i ^ j;
+        if (ixj > i) {
+          if ((i & (k << 1)) == 0)
+            cswap(v[i], v[ixj]);
+          else
+            cswap(v[ixj], v[i]);
+        }
+      }
+    }
+  }
+  return v[12];
+}
+
+// median of the 5x5 window whose top-left corner is at src (row stride ld)
+__device__ __forceinline__ float median5x5(const float* src, int ld) {
+  float v[32];
+#pragma unroll
+  for (int dy = 0; dy < 5; ++dy)
+#pragma unroll
+    for (int dx = 0; dx < 5; ++dx) v[dy * 5 + dx] = src[dy * ld + dx];
+#pragma unroll
+  for (int t = 25; t < 32; ++t) v[t] = __int_as_float(0x7f800000);
+  return median25(v);
+}
+
 // 1-D Gaussian taps passed by value (kernel parameter space)
 struct Taps {
   float v[32];

@@ -32,33 +32,6 @@ constexpr int MTH = 32;
 constexpr int MTW = 64;
 constexpr int THREADS = 256;
 
-__device__ __forceinline__ void cswap(float& a, float& b) {
-  const float lo = fminf(a, b), hi = fmaxf(a, b);
-  a = lo;
-  b = hi;
-}
-
-// 13th smallest of the 25 values (the 32-way bitonic sort, +inf padded)
-__device__ __forceinline__ float median25(float (&v)[32]) {
-#pragma unroll
-  for (int k = 1; k < 32; k <<= 1) {
-#pragma unroll
-    for (int j = k; j >= 1; j >>= 1) {
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        const int ixj = i ^ j;
-        if (ixj > i) {
-          if ((i & (k << 1)) == 0)
-            cswap(v[i], v[ixj]);
-          else
-            cswap(v[ixj], v[i]);
-        }
-      }
-    }
-  }
-  return v[12];
-}
-
 __global__ void __launch_bounds__(THREADS)
 median5_diffuse_kernel(const float* __restrict__ x, const float* __restrict__ cf,
                        float* __restrict__ out, int h, int w, pano::Taps taps) {
@@ -82,14 +55,7 @@ median5_diffuse_kernel(const float* __restrict__ x, const float* __restrict__ cf
 
   for (int k = threadIdx.x; k < mh * mw; k += blockDim.x) {
     const int r = k / mw, q = k % mw;
-    float v[32];
-#pragma unroll
-    for (int dy = 0; dy < 5; ++dy)
-#pragma unroll
-      for (int dx = 0; dx < 5; ++dx) v[dy * 5 + dx] = xs[(r + dy) * xw + q + dx];
-#pragma unroll
-    for (int t = 25; t < 32; ++t) v[t] = __int_as_float(0x7f800000);
-    med[k] = median25(v);
+    med[k] = pano::median5x5(xs + r * xw + q, xw);
   }
   __syncthreads();
 

@@ -1,15 +1,22 @@
-// One relaxation phase of the pixflow solver with the blurred-flow target
-// fused in: K Jacobi iterations of 4-neighbour propagation + descent.
+// One relaxation phase of the pixflow solver: K Jacobi iterations of
+// 4-neighbour propagation + descent, in two variants (FUSE_BF):
+//   fused    the blurred-flow target is computed in the kernel from f_base;
+//            replaces relax_phase_pallas(..., fuse_bf=True), the
+//            relaxation of every fused single-phase pyramid level;
+//   unfused  the target (bfx, bfy) is an input, blurred once per level by
+//            the caller; replaces relax_phase_pallas(..., fuse_bf=False),
+//            each phase of multi-phase levels (relax_phases > 1) and of
+//            levels with fuse_level_blurs=False.
+// Both Pallas variants are _relax_phase_impl in
+// panorama_opticalflow_tpu/ops/pallas/kernels.py.
 //
-// Replaces the Pallas kernel relax_phase_pallas(..., fuse_bf=True)
-// (_relax_phase_impl) in panorama_opticalflow_tpu/ops/pallas/kernels.py,
-// the relaxation of every fused pyramid level.
-//
-// Contract (= ops.kernels.relax_phase_fused_plain): every plane is
-// edge-padded by halo = K + D + 2 around each output tile and iterated on
-// that window with edge-replicated shifts at the window border; the
-// regularisation target is the separable k-tap Gaussian of the
-// edge-padded f_base, x pass first.  Per iteration:
+// Contract (= ops.kernels.relax_phase_fused_plain / _unfused_plain): every
+// plane is edge-padded by halo = K + D + 2 around each output tile and
+// iterated on that window with edge-replicated shifts at the window
+// border; the fused variant's regularisation target is the separable
+// k-tap Gaussian of the edge-padded f_base, x pass first, the unfused
+// variant reads bfx/bfy with the same clamped indices as every other
+// plane.  Per iteration:
 //   pass A  samples the bf16-quantised warped gradients w1 with a D-wide
 //           separable hat window at the own offset and for the 4
 //           neighbour candidates, error = data + smooth*|bf - f|
@@ -26,8 +33,10 @@
 // a few thousand flops a pixel.  Design: one block per (32, 64) output
 // tile and flow direction; the K iterations stay in shared memory (the
 // flow state, blurred target, accepted candidate and its sample, one
-// derivative map and one x-pass buffer pair: 177 KB at K=3, D=2), so
-// device memory is touched once per phase as in the reference kernel.
+// derivative map and one x-pass buffer pair: 177 KB at K=3, D=2, for
+// both variants), so device memory is touched once per phase as in the
+// reference kernel.  The fused variant's blur scratch reuses the buffers
+// that the iterations fill later; the unfused one needs none.
 // The neighbour sample maps are not stored: each pixel evaluates its
 // neighbours' y passes from the shared x-pass buffer.  Inputs read only
 // once a pass (f_base, i0, mask, w1) are read from device memory with
@@ -50,6 +59,7 @@ struct Scalars {
 
 struct Planes {
   const float *fx, *fy, *bx, *by, *w1x, *w1y, *i0x, *i0y, *mask;
+  const float *bfx, *bfy;  // the given target (unfused variant only)
   float *ofx, *ofy;
 };
 
@@ -136,7 +146,7 @@ struct Relax {
   }
 };
 
-template <int D>
+template <int D, bool FUSE_BF>
 __global__ void __launch_bounds__(THREADS)
 relax_phase_kernel(Planes p, Scalars s, pano::Taps taps, int h, int w,
                    int iters) {
@@ -162,30 +172,40 @@ relax_phase_kernel(Planes p, Scalars s, pano::Taps taps, int h, int w,
     fy[k] = R.g(p.fy, k / twe, k % twe);
   }
 
-  // blurred-flow target over the window from the f_base planes, padded by
-  // gr more; scratch lives in the not-yet-used best/gy buffers
-  const int gr = taps.n / 2;
-  const int bh = the + 2 * gr, bw = twe + 2 * gr;
-  float* src = bestfx;        // bh x bw
-  float* tmp = src + bh * bw;  // bh x twe
-  for (int pl = 0; pl < 2; ++pl) {
-    const float* b = pl ? p.by : p.bx;
-    float* bf = pl ? bfy : bfx;
-    for (int k = threadIdx.x; k < bh * bw; k += blockDim.x)
-      src[k] = R.g(b, k / bw - gr, k % bw - gr);
-    __syncthreads();
-    for (int k = threadIdx.x; k < bh * twe; k += blockDim.x) {
-      const float* row = src + (k / twe) * bw + k % twe;
-      float acc = 0.f;
-      for (int t = 0; t < taps.n; ++t) acc = acc + taps.v[t] * row[t];
-      tmp[k] = acc;
+  if constexpr (FUSE_BF) {
+    // blurred-flow target over the window from the f_base planes, padded
+    // by gr more; scratch lives in the not-yet-used best/gy buffers
+    const int gr = taps.n / 2;
+    const int bh = the + 2 * gr, bw = twe + 2 * gr;
+    float* src = bestfx;         // bh x bw
+    float* tmp = src + bh * bw;  // bh x twe
+    for (int pl = 0; pl < 2; ++pl) {
+      const float* b = pl ? p.by : p.bx;
+      float* bf = pl ? bfy : bfx;
+      for (int k = threadIdx.x; k < bh * bw; k += blockDim.x)
+        src[k] = R.g(b, k / bw - gr, k % bw - gr);
+      __syncthreads();
+      for (int k = threadIdx.x; k < bh * twe; k += blockDim.x) {
+        const float* row = src + (k / twe) * bw + k % twe;
+        float acc = 0.f;
+        for (int t = 0; t < taps.n; ++t) acc = acc + taps.v[t] * row[t];
+        tmp[k] = acc;
+      }
+      __syncthreads();
+      for (int k = threadIdx.x; k < A; k += blockDim.x) {
+        const float* col = tmp + (k / twe) * twe + k % twe;
+        float acc = 0.f;
+        for (int t = 0; t < taps.n; ++t)
+          acc = acc + taps.v[t] * col[t * twe];
+        bf[k] = acc;
+      }
+      __syncthreads();
     }
-    __syncthreads();
+  } else {
+    // the given target, edge-clamped like every other plane
     for (int k = threadIdx.x; k < A; k += blockDim.x) {
-      const float* col = tmp + (k / twe) * twe + k % twe;
-      float acc = 0.f;
-      for (int t = 0; t < taps.n; ++t) acc = acc + taps.v[t] * col[t * twe];
-      bf[k] = acc;
+      bfx[k] = R.g(p.bfx, k / twe, k % twe);
+      bfy[k] = R.g(p.bfy, k / twe, k % twe);
     }
     __syncthreads();
   }
@@ -292,31 +312,66 @@ relax_phase_kernel(Planes p, Scalars s, pano::Taps taps, int h, int w,
   }
 }
 
-// shared-memory bytes of one block, or 0 when the geometry is refused
-size_t relax_smem(int iters, int D, int ksize) {
+// shared-memory bytes of one block, or 0 when the fused variant's blur
+// scratch does not fit the buffers it borrows
+size_t relax_smem(int iters, int D, int ksize, bool fuse_bf) {
   const int halo = iters + D + 2, gr = ksize / 2;
   const size_t the = RTH + 2 * halo, twe = RTW + 2 * halo;
   const size_t A = the * twe;
   const size_t X = (the + 2 * (D + 1)) * (twe + 2);
   const size_t blur = (the + 2 * gr) * (twe + 2 * gr) + (the + 2 * gr) * twe;
-  if (blur > 6 * A) return 0;  // blur scratch must fit the 6 spare buffers
+  if (fuse_bf && blur > 6 * A) return 0;  // must fit the 6 spare buffers
   return (10 * A + 2 * X) * sizeof(float);
 }
 
-template <int D>
+// the opt-in shared-memory limit of one block on the current device
+size_t smem_limit() {
+  int dev = 0, bytes = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return 0;
+  return (size_t)bytes;
+}
+
+template <int D, bool FUSE_BF>
 int launch(const Planes& p, const Scalars& s, const pano::Taps& taps, int nb,
            int h, int w, int iters, size_t smem, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      relax_phase_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      relax_phase_kernel<D, FUSE_BF>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((w + RTW - 1) / RTW, (h + RTH - 1) / RTH, nb);
-  relax_phase_kernel<D><<<grid, THREADS, smem, stream>>>(p, s, taps, h, w,
-                                                         iters);
+  relax_phase_kernel<D, FUSE_BF><<<grid, THREADS, smem, stream>>>(
+      p, s, taps, h, w, iters);
   return (int)cudaGetLastError();
 }
 
+template <bool FUSE_BF>
+int dispatch(const Planes& p, const Scalars& s, const pano::Taps& taps,
+             int nb, int h, int w, int iters, int D, int ksize,
+             cudaStream_t st) {
+  if (iters < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = relax_smem(iters, D, ksize, FUSE_BF);
+  if (smem == 0 || smem > smem_limit()) return (int)cudaErrorInvalidValue;
+  switch (D) {
+    case 1: return launch<1, FUSE_BF>(p, s, taps, nb, h, w, iters, smem, st);
+    case 2: return launch<2, FUSE_BF>(p, s, taps, nb, h, w, iters, smem, st);
+    case 3: return launch<3, FUSE_BF>(p, s, taps, nb, h, w, iters, smem, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
+
+// shared-memory bytes a block of the relax kernel needs (0: refused) and
+// the most the current device allows, for the wrapper's error message
+extern "C" long long pano_relax_smem(int iters, int D, int ksize,
+                                     int fuse_bf) {
+  return (long long)relax_smem(iters, D, ksize, fuse_bf != 0);
+}
+
+extern "C" long long pano_smem_limit() { return (long long)smem_limit(); }
 
 extern "C" int pano_relax_phase_fused(
     const float* fx, const float* fy, const float* bx, const float* by,
@@ -325,18 +380,25 @@ extern "C" int pano_relax_phase_fused(
     int iters, int D, const float* taps_host, int ksize, float lim,
     float smooth, float step, float vreg_w, float hreg_w, int fold,
     int w1_bf16, void* stream) {
-  if (iters < 1 || ksize < 1 || ksize > 31 || ksize % 2 == 0)
+  if (ksize < 1 || ksize > 31 || ksize % 2 == 0)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = relax_smem(iters, D, ksize);
-  if (smem == 0) return (int)cudaErrorInvalidValue;
-  const Planes p{fx, fy, bx, by, w1x, w1y, i0x, i0y, mask, ofx, ofy};
+  const Planes p{fx,  fy,   bx,      by,      w1x, w1y, i0x,
+                 i0y, mask, nullptr, nullptr, ofx, ofy};
   const Scalars s{lim, smooth, step, vreg_w, hreg_w, fold, w1_bf16};
-  const pano::Taps taps = pano::make_taps(taps_host, ksize);
-  const cudaStream_t st = (cudaStream_t)stream;
-  switch (D) {
-    case 1: return launch<1>(p, s, taps, nb, h, w, iters, smem, st);
-    case 2: return launch<2>(p, s, taps, nb, h, w, iters, smem, st);
-    case 3: return launch<3>(p, s, taps, nb, h, w, iters, smem, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return dispatch<true>(p, s, pano::make_taps(taps_host, ksize), nb, h, w,
+                        iters, D, ksize, (cudaStream_t)stream);
+}
+
+extern "C" int pano_relax_phase_unfused(
+    const float* fx, const float* fy, const float* bx, const float* by,
+    const float* w1x, const float* w1y, const float* i0x, const float* i0y,
+    const float* bfx, const float* bfy, const float* mask, float* ofx,
+    float* ofy, int nb, int h, int w, int iters, int D, float lim,
+    float smooth, float step, float vreg_w, float hreg_w, int fold,
+    int w1_bf16, void* stream) {
+  const Planes p{fx, fy, bx, by, w1x, w1y, i0x, i0y, mask, bfx, bfy, ofx,
+                 ofy};
+  const Scalars s{lim, smooth, step, vreg_w, hreg_w, fold, w1_bf16};
+  return dispatch<false>(p, s, pano::Taps{}, nb, h, w, iters, D, 1,
+                         (cudaStream_t)stream);
 }

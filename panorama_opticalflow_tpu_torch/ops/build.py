@@ -32,11 +32,19 @@ build_log = ""        # nvcc's output of the last build (register/smem use)
 build_seconds = 0.0   # wall time of the last build, 0 when it was cached
 
 _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ll = ctypes.c_longlong
+# name: (argument types, return type); a launch returns its cudaError_t
 _SIGNATURES = {
-    "pano_warp_tiled": [_p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _f, _p],
-    "pano_median5_diffuse": [_p, _p, _p, _i, _i, _i, _p, _i, _p],
-    "pano_relax_phase_fused": [_p] * 11 + [_i] * 5 + [_p, _i] + [_f] * 5
-    + [_i, _i, _p],
+    "pano_warp_tiled": ([_p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _f, _p],
+                        _i),
+    "pano_median5": ([_p, _p, _i, _i, _i, _p], _i),
+    "pano_median5_diffuse": ([_p, _p, _p, _i, _i, _i, _p, _i, _p], _i),
+    "pano_relax_phase_fused": ([_p] * 11 + [_i] * 5 + [_p, _i] + [_f] * 5
+                               + [_i, _i, _p], _i),
+    "pano_relax_phase_unfused": ([_p] * 13 + [_i] * 5 + [_f] * 5
+                                 + [_i, _i, _p], _i),
+    "pano_relax_smem": ([_i] * 4, _ll),
+    "pano_smem_limit": ([], _ll),
 }
 
 
@@ -91,9 +99,9 @@ def load() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(build())
-        for name, argtypes in _SIGNATURES.items():
+        for name, (argtypes, restype) in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = _i
+            fn.restype = restype
         _lib = lib
     return _lib

@@ -2,13 +2,15 @@
 wrappers and their plain PyTorch versions (counterpart of the reference's
 ``ops/pallas/kernels.py``).
 
-=========================  ======================================  =====================
+=========================  ======================================  ============================
 wrapper                    replaces (reference Pallas kernel)      plain version
-=========================  ======================================  =====================
+=========================  ======================================  ============================
 ``warp_tiled``             ``warp_tiled_pallas``                   ``warp_tiled_plain``
 ``relax_phase``            ``relax_phase_pallas(fuse_bf=True)``    ``relax_phase_fused_plain``
+``relax_phase_unfused``    ``relax_phase_pallas(fuse_bf=False)``   ``relax_phase_unfused_plain``
 ``median5_diffuse``        ``median5_diffuse_pallas``              ``median5_diffuse_plain``
-=========================  ======================================  =====================
+``median5``                ``median5_pallas``                      ``ops.image.median5``
+=========================  ======================================  ============================
 
 A wrapper checks its inputs and raises on anything the kernel does not
 take.  For tensors on the CPU it runs the plain version; for CUDA tensors
@@ -16,8 +18,8 @@ it launches the kernel (built from ``csrc/`` on first use, see
 ``ops.build``) and raises if the launch is refused -- there is no
 fallback.  Each wrapper counts its kernel launches in its ``launches``
 attribute.  The plain versions compute exactly the kernel's contract,
-border semantics included (edge-replicated windows, not the reflect-101
-borders of the unfused path).
+border semantics included (edge-replicated windows, not the validity
+masks and reflect-101 blurs of the plain level path, ``ops.relax_fast``).
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ import numpy as np
 import torch
 
 from panorama_opticalflow_tpu_torch.utils.config import FlowParams
-from panorama_opticalflow_tpu_torch.ops.image import gaussian_kernel_1d
+from panorama_opticalflow_tpu_torch.ops.image import (gaussian_kernel_1d,
+                                                      median5 as median5_plain)
 from panorama_opticalflow_tpu_torch.ops.relax_fast import (
     _pad2, sample_maps, shift_edge, tile_offsets, warp_by_flow_tiled)
 
@@ -163,7 +166,30 @@ median5_diffuse.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# 3. relax phase with the fused blurred-flow target
+# 3. median5 alone (multi-phase and unfused levels)
+# ---------------------------------------------------------------------------
+
+
+def median5(x: torch.Tensor) -> torch.Tensor:
+    """cv::medianBlur 5x5, BORDER_REPLICATE, on (P, H, W) float32 planes;
+    bit-identical to its plain version ``ops.image.median5``."""
+    if x.dim() != 3:
+        raise ValueError("median5: x must be (P, H, W)")
+    dev = _check("median5", {"x": x}, {"x": x.shape})
+    if dev.type == "cpu":
+        return median5_plain(x)
+    out = torch.empty_like(x)
+    _launch("median5", "pano_median5", x.data_ptr(), out.data_ptr(),
+            *x.shape, _stream())
+    median5.launches += 1
+    return out
+
+
+median5.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# 4. relax phase: the blurred-flow target fused in, or given
 # ---------------------------------------------------------------------------
 
 
@@ -174,49 +200,18 @@ def _reg_w(params: FlowParams, w: int) -> tuple[float, float]:
             float(np.float32(params.horizontal_regularization_coef / w)))
 
 
-def relax_phase_fused_plain(fx, fy, bx, by, w1x, w1y, i0x, i0y, mask,
-                            params: FlowParams, iters: int, D: int):
-    """The relax kernel's contract on (B, H, W) planes: returns (fx', fy').
-
-    Every plane is edge-padded by halo = iters + D + 2 and the padded
-    plane is iterated as one window: shifts replicate the window edge
-    (no validity masks), the x passes edge-extend the offsets, and the
-    regularisation target is the separable Gaussian (x first) of the
-    f_base planes edge-padded by a further kernel radius.  The output
-    crops the halo.  The kernel runs the same math per output tile on
-    the tile's halo window; the two agree wherever the halo covers the
-    iterations' reach."""
-    nb, h, w = fx.shape
-    halo = iters + D + 2
-    kw = params.blurred_flow_kernel_width
-    gr = kw // 2
-    taps = gaussian_kernel_1d(kw, params.blurred_flow_sigma)
-
-    def pad(a, n):
-        return _pad2(a, n, n, n, n)
-
-    fxp, fyp, i0xp, i0yp, mp = (pad(a, halo) for a in (fx, fy, i0x, i0y,
-                                                       mask))
-    hp, wp = h + 2 * halo, w + 2 * halo
-
-    def blur_valid(a):
-        acc = torch.zeros((nb, hp + 2 * gr, wp), dtype=a.dtype,
-                          device=a.device)
-        for t in range(kw):
-            acc = acc + float(taps[t]) * a[..., t:t + wp]
-        out = torch.zeros((nb, hp, wp), dtype=a.dtype, device=a.device)
-        for t in range(kw):
-            out = out + float(taps[t]) * acc[..., t:t + hp, :]
-        return out
-
-    bxg, byg = pad(bx, halo + gr), pad(by, halo + gr)
-    bfx, bfy = blur_valid(bxg), blur_valid(byg)
-    bxb = bxg[..., gr:gr + hp, gr:gr + wp]
-    byb = byg[..., gr:gr + hp, gr:gr + wp]
-    w1 = torch.stack([w1x, w1y], dim=1)
+def _relax_window(fxp, fyp, bxb, byb, bfx, bfy, w1, i0xp, i0yp, mp,
+                  params: FlowParams, iters: int, D: int, w: int):
+    """The iterations both relax kernels run, on one edge-padded window:
+    every plane (B, Hp, Wp) already padded by halo = iters + D + 2, and
+    ``w1`` (B, 2, H, W) unpadded.  Shifts replicate the window edge (no
+    validity masks) and the x passes edge-extend the offsets.  Returns
+    the iterated (fx, fy) windows."""
     if params.w1_bf16:
         w1 = w1.to(torch.bfloat16).to(torch.float32)
-    w1_pad = pad(w1, halo + D + 1)
+    halo = iters + D + 2
+    w1_pad = _pad2(w1, halo + D + 1, halo + D + 1, halo + D + 1,
+                   halo + D + 1)
     vreg_w, hreg_w = _reg_w(params, w)
     smooth = params.smoothness_coef
     step = params.gradient_step_size
@@ -270,8 +265,105 @@ def relax_phase_fused_plain(fx, fy, bx, by, w1x, w1y, i0x, i0y, mask,
         upd = mp > 0
         fxp = torch.where(upd, best_fx - step * gx, fxp)
         fyp = torch.where(upd, best_fy - step * gy, fyp)
+    return fxp, fyp
+
+
+def _crop(fxp, fyp, halo: int, h: int, w: int):
     crop = np.s_[..., halo:halo + h, halo:halo + w]
     return fxp[crop], fyp[crop]
+
+
+def relax_phase_fused_plain(fx, fy, bx, by, w1x, w1y, i0x, i0y, mask,
+                            params: FlowParams, iters: int, D: int):
+    """The fused relax kernel's contract on (B, H, W) planes: returns
+    (fx', fy').
+
+    Every plane is edge-padded by halo = iters + D + 2 and the padded
+    plane is iterated as one window (``_relax_window``); the
+    regularisation target is the separable Gaussian (x first) of the
+    f_base planes edge-padded by a further kernel radius.  The output
+    crops the halo.  The kernel runs the same math per output tile on
+    the tile's halo window; the two agree wherever the halo covers the
+    iterations' reach."""
+    nb, h, w = fx.shape
+    halo = iters + D + 2
+    kw = params.blurred_flow_kernel_width
+    gr = kw // 2
+    taps = gaussian_kernel_1d(kw, params.blurred_flow_sigma)
+    hp, wp = h + 2 * halo, w + 2 * halo
+
+    def blur_valid(a):
+        acc = torch.zeros((nb, hp + 2 * gr, wp), dtype=a.dtype,
+                          device=a.device)
+        for t in range(kw):
+            acc = acc + float(taps[t]) * a[..., t:t + wp]
+        out = torch.zeros((nb, hp, wp), dtype=a.dtype, device=a.device)
+        for t in range(kw):
+            out = out + float(taps[t]) * acc[..., t:t + hp, :]
+        return out
+
+    n = halo + gr
+    bxg, byg = _pad2(bx, n, n, n, n), _pad2(by, n, n, n, n)
+    bxb = bxg[..., gr:gr + hp, gr:gr + wp]
+    byb = byg[..., gr:gr + hp, gr:gr + wp]
+    fxp, fyp, i0xp, i0yp, mp = (_pad2(a, halo, halo, halo, halo)
+                                for a in (fx, fy, i0x, i0y, mask))
+    out = _relax_window(fxp, fyp, bxb, byb, blur_valid(bxg), blur_valid(byg),
+                        torch.stack([w1x, w1y], dim=1), i0xp, i0yp, mp,
+                        params, iters, D, w)
+    return _crop(*out, halo, h, w)
+
+
+def relax_phase_unfused_plain(fx, fy, bx, by, w1x, w1y, i0x, i0y, bfx, bfy,
+                              mask, params: FlowParams, iters: int, D: int):
+    """The unfused relax kernel's contract on (B, H, W) planes: returns
+    (fx', fy').  As ``relax_phase_fused_plain``, with the regularisation
+    target given as ``bfx``/``bfy`` and edge-padded by the halo like every
+    other plane (the reference pads it so, kernels.py:394-396)."""
+    nb, h, w = fx.shape
+    halo = iters + D + 2
+    padded = [_pad2(a, halo, halo, halo, halo)
+              for a in (fx, fy, bx, by, bfx, bfy, i0x, i0y, mask)]
+    out = _relax_window(*padded[:6], torch.stack([w1x, w1y], dim=1),
+                        *padded[6:], params, iters, D, w)
+    return _crop(*out, halo, h, w)
+
+
+def _relax_check(name: str, planes: dict, iters: int,
+                 D: int) -> torch.device:
+    if planes["fx"].dim() != 3:
+        raise ValueError(f"{name}: planes must be (B, H, W)")
+    if not 1 <= D <= 3 or iters < 1:
+        raise ValueError(f"{name}: needs 1 <= D <= 3 and iters >= 1, "
+                         f"got D={D}, iters={iters}")
+    return _check(name, planes, {k: planes["fx"].shape for k in planes})
+
+
+def _relax_smem_check(name: str, params: FlowParams, iters: int, D: int,
+                      fuse_bf: bool) -> None:
+    """Raise when the kernel refuses the geometry: a block's halo window
+    grows with ``iters`` and must fit the card's shared memory."""
+    from panorama_opticalflow_tpu_torch.ops import build
+
+    lib = build.load()
+    need = lib.pano_relax_smem(iters, D, params.blurred_flow_kernel_width,
+                               int(fuse_bf))
+    limit = lib.pano_smem_limit()
+    if need == 0:
+        raise ValueError(f"{name}: the blur scratch of a "
+                         f"{params.blurred_flow_kernel_width}-tap target "
+                         f"does not fit at iters={iters}, D={D}")
+    if need > limit:
+        raise ValueError(f"{name}: iters={iters}, D={D} needs {need} bytes "
+                         f"of shared memory per block, the card allows "
+                         f"{limit}")
+
+
+def _relax_scalars(params: FlowParams, w: int, D: int) -> tuple:
+    vreg_w, hreg_w = _reg_w(params, w)
+    return (float(D - 1e-3), params.smoothness_coef,
+            params.gradient_step_size, vreg_w, hreg_w,
+            int(params.fold_descent_sample), int(params.w1_bf16))
 
 
 def relax_phase(fx, fy, bx, by, w1x, w1y, i0x, i0y, mask,
@@ -280,40 +372,63 @@ def relax_phase(fx, fy, bx, by, w1x, w1y, i0x, i0y, mask,
     blurred-flow target computed from ``bx``/``by`` (f_base) in the
     kernel (single-phase levels).  ``mask`` is 1.0 where updatable.
     Returns (fx', fy')."""
-    if fx.dim() != 3:
-        raise ValueError("relax_phase: planes must be (B, H, W)")
-    if not 1 <= D <= 3 or iters < 1:
-        raise ValueError(f"relax_phase: needs 1 <= D <= 3 and iters >= 1, "
-                         f"got D={D}, iters={iters}")
+    planes = {"fx": fx, "fy": fy, "bx": bx, "by": by, "w1x": w1x,
+              "w1y": w1y, "i0x": i0x, "i0y": i0y, "mask": mask}
+    dev = _relax_check("relax_phase", planes, iters, D)
     kw = params.blurred_flow_kernel_width
     if kw % 2 == 0 or not 1 <= kw <= 31:
         raise ValueError(f"relax_phase: odd blur width <= 31, got {kw}")
-    planes = {"fx": fx, "fy": fy, "bx": bx, "by": by, "w1x": w1x,
-              "w1y": w1y, "i0x": i0x, "i0y": i0y, "mask": mask}
-    dev = _check("relax_phase", planes, {k: fx.shape for k in planes})
     if dev.type == "cpu":
         return relax_phase_fused_plain(fx, fy, bx, by, w1x, w1y, i0x, i0y,
                                        mask, params, iters, D)
+    _relax_smem_check("relax_phase", params, iters, D, True)
     nb, h, w = fx.shape
     ofx = torch.empty_like(fx)
     ofy = torch.empty_like(fy)
     taps = np.ascontiguousarray(
         gaussian_kernel_1d(kw, params.blurred_flow_sigma))
-    vreg_w, hreg_w = _reg_w(params, w)
     _launch("relax_phase", "pano_relax_phase_fused",
             *(t.data_ptr() for t in planes.values()), ofx.data_ptr(),
             ofy.data_ptr(), nb, h, w, iters, D,
-            taps.ctypes.data_as(ctypes.c_void_p), kw, float(D - 1e-3),
-            params.smoothness_coef, params.gradient_step_size, vreg_w,
-            hreg_w, int(params.fold_descent_sample), int(params.w1_bf16),
-            _stream())
+            taps.ctypes.data_as(ctypes.c_void_p), kw,
+            *_relax_scalars(params, w, D), _stream())
     relax_phase.launches += 1
     return ofx, ofy
 
 
 relax_phase.launches = 0
 
-KERNELS = (warp_tiled, relax_phase, median5_diffuse)
+
+def relax_phase_unfused(fx, fy, bx, by, w1x, w1y, i0x, i0y, bfx, bfy, mask,
+                        params: FlowParams, iters: int, D: int):
+    """``iters`` relaxation iterations on (B, H, W) float32 planes against
+    the given blurred-flow target ``bfx``/``bfy`` (each phase of a
+    multi-phase or unfused level; ``bx``/``by`` is the phase's f_base).
+    ``mask`` is 1.0 where updatable.  Returns (fx', fy')."""
+    planes = {"fx": fx, "fy": fy, "bx": bx, "by": by, "w1x": w1x,
+              "w1y": w1y, "i0x": i0x, "i0y": i0y, "bfx": bfx, "bfy": bfy,
+              "mask": mask}
+    dev = _relax_check("relax_phase_unfused", planes, iters,
+                       D)
+    if dev.type == "cpu":
+        return relax_phase_unfused_plain(fx, fy, bx, by, w1x, w1y, i0x, i0y,
+                                         bfx, bfy, mask, params, iters, D)
+    _relax_smem_check("relax_phase_unfused", params, iters, D, False)
+    nb, h, w = fx.shape
+    ofx = torch.empty_like(fx)
+    ofy = torch.empty_like(fy)
+    _launch("relax_phase_unfused", "pano_relax_phase_unfused",
+            *(t.data_ptr() for t in planes.values()), ofx.data_ptr(),
+            ofy.data_ptr(), nb, h, w, iters, D,
+            *_relax_scalars(params, w, D), _stream())
+    relax_phase_unfused.launches += 1
+    return ofx, ofy
+
+
+relax_phase_unfused.launches = 0
+
+KERNELS = (warp_tiled, relax_phase, median5_diffuse,
+           relax_phase_unfused, median5)
 
 
 def reset_launch_counts() -> None:

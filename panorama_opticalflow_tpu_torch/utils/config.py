@@ -68,12 +68,13 @@ class FlowParams:
     # residual instead of re-sampling at the accepted flow.
     fold_descent_sample: bool = True
     # In the port these fields mean "use the hand-written CUDA kernels"
-    # (ops/kernels): the fused single-phase level (relax_phase +
-    # median5_diffuse) on levels of at least pallas_min_pixels when
-    # fuse_level_blurs is set, and the tiled warp on every fast level when
-    # warp_pallas is set.  The branch taken does not depend on the device:
-    # a wrapper runs its plain PyTorch version for CPU tensors only.
-    # use_pallas=False selects the unfused plain path.
+    # (ops/kernels) on levels of at least pallas_min_pixels: the fused
+    # single-phase level (relax_phase + median5_diffuse) when
+    # fuse_level_blurs is set and relax_phases is 1, else per phase
+    # relax_phase_unfused + median5; and the tiled warp on every fast
+    # level when warp_pallas is set.  The branch taken does not depend on
+    # the device: a wrapper runs its plain PyTorch version for CPU tensors
+    # only.  use_pallas=False selects the unfused plain path.
     use_pallas: bool = True
     pallas_min_pixels: int = 128 * 512
     # Quantise the warped gradients to bfloat16 once at load; all
@@ -81,6 +82,11 @@ class FlowParams:
     w1_bf16: bool = True
     fuse_level_blurs: bool = True
     warp_pallas: bool = True
+
+    @property
+    def search_distance(self) -> int:
+        # radius of the coarsest-level search init (CPU/PixFlow.hpp:153-155)
+        return (self.pyr_min_image_size * self.max_percentage + 50) // 100
 
 
 def flow_params_by_name(name: str) -> FlowParams:
@@ -144,3 +150,18 @@ class StitchConfig:
     @property
     def flow_params(self) -> FlowParams:
         return flow_params_by_name(self.flow_alg)
+
+
+def with_flow_params(cfg: StitchConfig, **changes) -> StitchConfig:
+    """``cfg`` whose ``flow_params`` are its preset's with ``changes``
+    applied (e.g. ``relax_phases=2, relax_iters_per_phase=2``): a schedule
+    knob under the same preset name, as the JAX package's 36 MP fidelity
+    harness (``tools/fidelity_36mp.py``) sets its knobs."""
+    params = dataclasses.replace(cfg.flow_params, **changes)
+
+    class Knobbed(type(cfg)):
+        @property
+        def flow_params(self) -> FlowParams:
+            return params
+
+    return Knobbed(**dataclasses.asdict(cfg))

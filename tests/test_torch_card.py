@@ -5,10 +5,12 @@ no JAX:
     python -m pytest --noconftest tests/test_torch_card.py -q
 
 Every test skips when torch.cuda.is_available() is false.  Tolerances as
-in chip_smoke.py: warp 2e-6 and median5+diffuse 1e-5 (both kernels build
-with -fmad=false and keep the plain version's tap order); relax 1e-5 on
-all but < 1e-4 of the pixels, where a 1-ulp difference may flip a
-strict-< candidate take.
+in chip_smoke.py: median5 bit-exact (a median only selects); warp 2e-6 and
+median5+diffuse 1e-5 (both kernels build with -fmad=false and keep the
+plain version's tap order); relax, fused and unfused, 1e-5 on all but
+< 1e-4 of the pixels, where a 1-ulp difference may flip a strict-<
+candidate take.  A stitch on the card against the same stitch on the CPU
+is held at the golden gate of tests/test_golden.py.
 """
 
 import os
@@ -24,6 +26,7 @@ from panorama_opticalflow_tpu_torch import (StitchConfig,
 from panorama_opticalflow_tpu_torch.models import pipeline
 from panorama_opticalflow_tpu_torch.ops import image as im
 from panorama_opticalflow_tpu_torch.ops import kernels as tk
+from panorama_opticalflow_tpu_torch.utils.config import with_flow_params
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden",
                       "six_96x320_s7.npz")
@@ -75,6 +78,52 @@ def test_median5_diffuse_kernel_matches_plain(rng, cuda):
     assert torch.equal(tk.median5_diffuse(x, zero), im.median5(x))
 
 
+def test_median5_kernel_matches_plain(rng, cuda):
+    for shape in ((4, 45, 203), (2, 300, 517)):
+        x = to_torch(rng.standard_normal(shape).astype(np.float32), cuda)
+        n = tk.median5.launches
+        got = tk.median5(x)
+        torch.cuda.synchronize()
+        assert tk.median5.launches == n + 1
+        assert torch.equal(got, tk.median5_plain(x))
+
+
+def _relax_planes(rng, cuda, shape, unfused):
+    mk = lambda s=0.1: to_torch(
+        rng.standard_normal(shape).astype(np.float32) * s, cuda)
+    fx, fy = mk(0.5), mk(0.5)
+    mask = to_torch((rng.random(shape) > 0.1).astype(np.float32), cuda)
+    target = [mk(0.5), mk(0.5)] if unfused else []
+    return [fx, fy, fx + mk(), fy + mk(), mk(), mk(), mk(), mk(),
+            *target, mask]
+
+
+@pytest.mark.parametrize("iters", [2, 3])
+def test_relax_unfused_kernel_matches_plain(rng, cuda, iters):
+    params = flow_params_by_name("pixflow_low")
+    planes = _relax_planes(rng, cuda, (2, 150, 300), unfused=True)
+    n = tk.relax_phase_unfused.launches
+    got = torch.stack(tk.relax_phase_unfused(*planes, params, iters, 2))
+    torch.cuda.synchronize()
+    assert tk.relax_phase_unfused.launches == n + 1
+    ref = torch.stack(tk.relax_phase_unfused_plain(*planes, params, iters,
+                                                   2))
+    diff = (got - ref).abs().amax(dim=0)
+    assert (diff > 1e-5).float().mean().item() < 1e-4
+
+
+def test_relax_kernels_refuse_a_window_above_shared_memory(rng, cuda):
+    """The halo window grows with the iterations: 8 iterations at D=2 need
+    more than a block's 227 KB, and both wrappers raise before launching."""
+    params = flow_params_by_name("pixflow_low")
+    fused = _relax_planes(rng, cuda, (1, 64, 64), unfused=False)
+    unfused = _relax_planes(rng, cuda, (1, 64, 64), unfused=True)
+    with pytest.raises(ValueError, match="shared memory"):
+        tk.relax_phase(*fused, params, 8, 2)
+    with pytest.raises(ValueError, match="shared memory"):
+        tk.relax_phase_unfused(*unfused, params, 8, 2)
+
+
 def test_relax_kernel_matches_plain(rng, cuda):
     params = flow_params_by_name("pixflow_low_fast")
     mk = lambda s=0.1: to_torch(
@@ -109,4 +158,25 @@ def test_stitch_six_on_card_meets_golden_gate(cuda):
     np.testing.assert_array_equal(out[..., 3], golden[..., 3])
     assert ssim(out, golden) >= 0.995
     diff = np.abs(out.astype(np.int32) - golden.astype(np.int32))
+    assert (diff > 8).mean() < 0.01
+
+
+def test_stitch_six_sched22_on_card_matches_cpu(cuda):
+    """The 2-phase x 2-iteration schedule with every fast level on the
+    kernels (pallas_min_pixels=0): the unfused relax kernel and median5
+    launch, and the card's stitch meets the golden gate against the same
+    stitch on the CPU."""
+    photos, top = synthesize_fisheye_set(96, 320, n=5, seed=7)
+    cfg = with_flow_params(StitchConfig(flow_alg="pixflow_low_fast"),
+                           relax_phases=2, relax_iters_per_phase=2,
+                           pallas_min_pixels=0)
+    tk.reset_launch_counts()
+    out = to_numpy(pipeline.stitch_six(photos, top, cfg, device=cuda))
+    assert tk.relax_phase_unfused.launches > 0
+    assert tk.median5.launches == tk.relax_phase_unfused.launches
+    assert tk.relax_phase.launches == tk.median5_diffuse.launches == 0
+    ref = to_numpy(pipeline.stitch_six(photos, top, cfg, device="cpu"))
+    np.testing.assert_array_equal(out[..., 3], ref[..., 3])
+    assert ssim(out, ref) >= 0.995
+    diff = np.abs(out.astype(np.int32) - ref.astype(np.int32))
     assert (diff > 8).mean() < 0.01

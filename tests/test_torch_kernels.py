@@ -3,9 +3,11 @@ Pallas twins, run in interpret mode on the CPU as
 tests/test_pallas_interpret.py runs them, over the WHOLE plane.
 
 Tolerances:
+  * median5 bit-exact: a median only selects one of its inputs.
   * warp 2e-6 and median5+diffuse 1e-5, everywhere: same taps in the same
     order; XLA contracts multiply-adds into FMAs, PyTorch rounds each op.
-  * relax (fuse_bf=True) 1e-5 everywhere at the interpret test's case.
+  * relax, fused and unfused, 1e-5 everywhere at the interpret tests'
+    cases (2 iterations).
     At the production schedule (3 iterations) a few isolated pixels take
     the other branch of a strict-< candidate test: most in a 2-px band at
     the canvas's first and last rows, where the edge-padded halo
@@ -66,11 +68,37 @@ def _relax_inputs(rng, b, h, w):
     return [fx, fy, bx, by, w1x, w1y, i0x, i0y, mask]
 
 
+def _unfused_inputs(rng, b, h, w):
+    """The fused inputs plus a given target (bfx, bfy) before the mask."""
+    planes = _relax_inputs(rng, b, h, w)
+    bf = [rng.standard_normal((b, h, w)).astype(np.float32) * 0.5
+          for _ in range(2)]
+    return planes[:8] + bf + planes[8:]
+
+
 def _pallas_relax(planes, params, iters, D, tile):
     a = [jnp.asarray(p) for p in planes]
     fx, fy = jk.relax_phase_pallas(*a[:8], None, None, a[8], params, iters,
                                    D, tile=tile, fuse_bf=True)
     return np.stack([np.asarray(fx), np.asarray(fy)])
+
+
+def _pallas_relax_unfused(planes, params, iters, D, tile):
+    fx, fy = jk.relax_phase_pallas(*[jnp.asarray(p) for p in planes],
+                                   params, iters, D, tile=tile)
+    return np.stack([np.asarray(fx), np.asarray(fy)])
+
+
+def _port_relax_unfused(planes, params, iters, D):
+    return np.stack([to_numpy(t) for t in tk.relax_phase_unfused_plain(
+        *[T(p) for p in planes], params, iters, D)])
+
+
+@pytest.mark.parametrize("shape", [(4, 48, 96), (2, 45, 203)])
+def test_median5_matches_pallas(rng, interp, shape):
+    x = rng.standard_normal(shape).astype(np.float32)
+    ref = np.asarray(jk.median5_pallas(jnp.asarray(x)))
+    np.testing.assert_array_equal(to_numpy(tk.median5(T(x))), ref)
 
 
 def test_warp_plain_matches_pallas(rng, interp):
@@ -131,6 +159,35 @@ def test_relax_plain_unfolded_matches_pallas(rng, interp):
     np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("D", [2, 3])
+@pytest.mark.parametrize("fold,w1_bf16", [(True, False), (False, False),
+                                          (True, True)])
+def test_relax_unfused_plain_matches_pallas(rng, interp, fold, w1_bf16, D):
+    """test_relax_kernel_interpret's cases (2 iterations, a given target)
+    over the whole plane, at D = 2 and 3."""
+    params = dataclasses.replace(flow_params_by_name("pixflow_low"),
+                                 fold_descent_sample=fold, w1_bf16=w1_bf16)
+    planes = _unfused_inputs(rng, 1, 48, 96)
+    ref = _pallas_relax_unfused(planes, params, 2, D, (32, 128))
+    got = _port_relax_unfused(planes, params, 2, D)
+    np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0)
+
+
+def test_relax_unfused_plain_matches_pallas_production(rng, interp):
+    """The unfused knob's schedule (3 iterations, D=2, bf16 w1, folded
+    descent sample) on both flow directions, at the production tile; the
+    share gate of the fused production test."""
+    params = dataclasses.replace(flow_params_by_name("pixflow_low"),
+                                 fuse_level_blurs=False)
+    assert (params.relax_iters_per_phase, params.fast_window) == (3, 2)
+    planes = _unfused_inputs(rng, 2, 96, 200)
+    ref = _pallas_relax_unfused(planes, params, 3, 2, params.pallas_tile)
+    got = _port_relax_unfused(planes, params, 3, 2)
+    diff = np.abs(got - ref).max(axis=0)
+    assert (diff > 1e-5).mean() <= 5e-4, np.argwhere(diff > 1e-5)
+    assert np.median(diff) <= 1e-6
+
+
 def test_wrappers_take_plain_version_on_cpu(rng):
     """On CPU tensors each wrapper returns its plain version's result and
     launches nothing."""
@@ -148,7 +205,13 @@ def test_wrappers_take_plain_version_on_cpu(rng):
     got = tk.relax_phase(*planes, params, 3, 2)
     ref = tk.relax_phase_fused_plain(*planes, params, 3, 2)
     assert all(torch.equal(a, b) for a, b in zip(got, ref))
-    assert [k.launches for k in tk.KERNELS] == [0, 0, 0]
+    assert torch.equal(tk.median5(x), tk.median5_plain(x))
+    planes = [T(p) for p in _unfused_inputs(rng, 2, 40, 70)]
+    got = tk.relax_phase_unfused(*planes, params, 2, 2)
+    ref = tk.relax_phase_unfused_plain(*planes, params, 2, 2)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    assert len(tk.KERNELS) == 5
+    assert all(k.launches == 0 for k in tk.KERNELS)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(rng):
@@ -168,3 +231,17 @@ def test_wrappers_reject_what_the_kernels_do_not_take(rng):
         tk.relax_phase(*planes, params, 3, 4)
     with pytest.raises(ValueError):
         tk.relax_phase(*planes[:-1], planes[-1][:, :10], params, 3, 2)
+    with pytest.raises(TypeError):
+        tk.median5(x.double())
+    with pytest.raises(ValueError):
+        tk.median5(x[0])
+    with pytest.raises(ValueError):
+        tk.median5(x.transpose(1, 2).contiguous().transpose(1, 2))
+    planes = [T(p) for p in _unfused_inputs(rng, 1, 20, 30)]
+    with pytest.raises(ValueError):
+        tk.relax_phase_unfused(*planes, params, 0, 2)
+    with pytest.raises(ValueError):       # bfy of another shape
+        tk.relax_phase_unfused(*planes[:9], planes[9][:, :10], planes[10],
+                               params, 3, 2)
+    with pytest.raises(TypeError):        # the 9 planes of the fused kernel
+        tk.relax_phase_unfused(*planes[:8], planes[10], params, 3, 2)

@@ -61,6 +61,8 @@ def test_config_copy_matches_jax(name):
     port = dataclasses.asdict(tcfg.flow_params_by_name(name))
     ref = dataclasses.asdict(jcfg.flow_params_by_name(name))
     assert port == {k: ref[k] for k in port}
+    assert tcfg.flow_params_by_name(name).search_distance == \
+        jcfg.flow_params_by_name(name).search_distance
     assert set(ref) - set(port) == {
         "median_blur_size", "pallas_bucket", "scan_coarse_levels",
         "scan_max_pixels", "scan_rung_levels", "scan_min_levels",
@@ -69,6 +71,18 @@ def test_config_copy_matches_jax(name):
         flow_alg=name)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jc)
     assert cfg.blend_scale_resolved == jc.blend_scale_resolved
+
+
+def test_with_flow_params_sets_a_schedule_knob():
+    """A knob replaces fields of the preset's FlowParams and nothing else,
+    as tools/fidelity_36mp.py patches flow_params_by_name."""
+    base = tcfg.StitchConfig(flow_alg="pixflow_low")
+    cfg = tcfg.with_flow_params(base, relax_phases=2,
+                                relax_iters_per_phase=2)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(base)
+    assert cfg.flow_params == dataclasses.replace(
+        base.flow_params, relax_phases=2, relax_iters_per_phase=2)
+    assert base.flow_params == tcfg.flow_params_by_name("pixflow_low")
 
 
 def test_data_copies_match_jax(rng):

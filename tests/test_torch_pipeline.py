@@ -52,6 +52,7 @@ def _port_six(photos, top, alg):
     (96, 320, 7, "pixflow_low"),
     (96, 320, 7, "pixflow_low_fast"),
     (64, 1280, 0, "pixflow_low_fast"),
+    (96, 320, 7, "pixflow_search_20"),
 ])
 def test_stitch_six_matches_jax(h, w, seed, alg):
     photos, top = synthesize_fisheye_set(h, w, n=5, seed=seed)
@@ -93,6 +94,15 @@ def test_stitch_six_matches_pinned_golden():
     photos, top = synthesize_fisheye_set(96, 320, n=5, seed=7)
     golden = np.load(os.path.join(GOLDEN_DIR, "six_96x320_s7.npz"))["output"]
     _check(_port_six(photos, top, "pixflow_low"), golden)
+
+
+def test_stitch_six_search20_matches_pinned_golden():
+    """The JAX package's search-init golden (test_golden.py's
+    six_64x256_s3_search20 case)."""
+    photos, top = synthesize_fisheye_set(64, 256, n=5, seed=3)
+    golden = np.load(os.path.join(
+        GOLDEN_DIR, "six_64x256_s3_search20.npz"))["output"]
+    _check(_port_six(photos, top, "pixflow_search_20"), golden)
 
 
 @pytest.mark.parametrize("alg", ["pixflow_low", "pixflow_low_fast"])

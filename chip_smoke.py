@@ -9,8 +9,11 @@ csrc/, then runs seven phases and prints one JSON object per phase line:
   A  the card (nvidia-smi name and power limit) and the kernel build;
   B  each of the five kernels against its plain PyTorch version on the
      card, at the 9000x4000 headline's finest-level shapes and at a ragged
-     small shape, with kernel and plain median times (CUDA events); the
-     unfused relax at 2 and 3 iterations;
+     small shape, with kernel and plain median times (CUDA events), the
+     kernel's bound (bytes at the memory rate or operations at the float32
+     peak, whichever is longer) and, for the warp, the time of
+     F.grid_sample on the same inputs; the unfused relax at 2 and 3
+     iterations;
   C  the main path: stitch_six of the 6-photo 9000x4000 synthetic set
      (seed 0) with pixflow_low_fast, once warm and once timed; latency,
      peak device memory, each kernel's launch count against the count the
@@ -35,6 +38,14 @@ limit, and as the last line {"ok": true, "device": {...}}.  Any failed
 check raises, so the exit code is non-zero and no result line is printed.
 It needs one CUDA card and exits non-zero at once without one.  Float32
 everywhere: TF32 is switched off for matmuls and cuDNN before any work.
+
+Two shorter modes for work on the kernels, each after phase A:
+
+    python3 chip_smoke.py --time-against CSRC    every kernel of this tree
+        and of the sources in CSRC (an earlier commit's csrc/) on the same
+        inputs, in turns: other, this, this, other
+    python3 chip_smoke.py --profile FLOW_ALG     torch.profiler over one
+        warm 9000x4000 stitch: device time by kernel, launches, idle share
 """
 
 from __future__ import annotations
@@ -137,117 +148,282 @@ def phase_a(smi: str) -> None:
           "ptxas": ptxas})
 
 
-def phase_b(dev) -> dict:
-    """Each kernel against its plain version at a ragged shape and at the
-    headline finest-level shapes; returns {kernel: {max_abs_err, ms,
-    plain_ms}}."""
+# Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
+# device memory rate, and float32 rate outside the tensor cores.  That
+# rate counts a fused multiply-add as two operations; the kernels are
+# built with -fmad=false, so nothing fuses and the instruction ceiling is
+# half of it.  The table gives the bound against both.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# Operations a pixel of the least-work form of each kernel (two taps a hat
+# pass, a 99-exchange selection of the median of 25), one for every
+# multiply, add, compare, min/max, floor, sqrt and divide:
+#   warp, two channels: the y residual and its two hat weights 12, at each
+#     of two rows the x residual and its weights 12, a channel two x sums
+#     and a y sum of (2 mul + 1 add) 9;
+#   relax, an iteration: x pass A 18 (offset, two weights, two sums); pass
+#     A 5 candidates x (y weights 9, two sums 6, error 20, compare 1) + 3;
+#     x pass B 30 (hat and dhat sums); descent 75;
+#   the fused relax adds the 15 x 15 separable blur of two planes, 2 x 2 x
+#     15 x 2;
+#   median of 25 by exchanges: 99 x (min + max); the diffusion adds two
+#     15-tap passes and the blend.
+WARP_OPS = 12 + 2 * 12 + 2 * 9
+RELAX_OPS_PER_ITER = 18 + (5 * 36 + 3) + 30 + 75
+MEDIAN_OPS = 99 * 2
+
+
+def bound(nbytes: int, ops: int) -> dict:
+    """The least time the card could take: every input byte read once and
+    every output byte written once at the memory rate, or the operations
+    at the float32 peak, whichever is longer."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_ms": t_bytes, "operations_ms": t_ops,
+            "bound_ms_no_fma": max(t_bytes, 2 * t_ops)}
+
+
+def kernel_cases(dev, rng, b: int, h: int, w: int) -> list[dict]:
+    """The five kernels on seeded inputs of (b, h, w) planes.  Each case
+    has the wrapper's call (``kernel``), the plain version's (``plain``),
+    the tolerance, the bytes and operations of the bound, and for the warp
+    the one PyTorch call that computes the same function (``library``),
+    the torch ops its wrapper runs before the launch (``glue``) and the
+    wrapper's call on offsets made before (``launch``).  A ``check_only``
+    case is held against its plain version and not timed."""
     import numpy as np
     import torch
+    import torch.nn.functional as F
 
     from panorama_opticalflow_tpu_torch import flow_params_by_name
     from panorama_opticalflow_tpu_torch.ops import kernels
 
     params = flow_params_by_name("pixflow_low_fast")
     iters, D = params.relax_iters_per_phase, params.fast_window
-    rng = np.random.default_rng(0)
+    kw = params.blurred_flow_kernel_width
+    px = b * h * w
 
     def planes(shape, scale=0.1):
         return torch.from_numpy(
             rng.standard_normal(shape).astype(np.float32) * scale).to(dev)
 
-    def smooth_flow(b, h, w):
-        yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
-        f = np.stack([20 * np.sin(yy / 370.0) + 5 * np.cos(xx / 530.0),
-                      8 * np.cos(yy / 290.0) - 3 * np.sin(xx / 410.0)], -1)
-        f = f + rng.standard_normal(f.shape).astype(np.float32) * 0.3
-        return torch.from_numpy(np.stack([f] * b).astype(np.float32)).to(dev)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    f = np.stack([20 * np.sin(yy / 370.0) + 5 * np.cos(xx / 530.0),
+                  8 * np.cos(yy / 290.0) - 3 * np.sin(xx / 410.0)], -1)
+    f = f + rng.standard_normal(f.shape).astype(np.float32) * 0.3
+    flow = torch.from_numpy(np.stack([f] * b).astype(np.float32)).to(dev)
+    img = planes((b, h, w, 2), 1.0)
+    # F.grid_sample takes channels-first images and sample positions scaled
+    # to [-1, 1]; both are made outside the timed call
+    pos = flow + torch.stack(torch.meshgrid(
+        torch.arange(w, device=dev, dtype=torch.float32),
+        torch.arange(h, device=dev, dtype=torch.float32), indexing="xy"), -1)
+    grid = 2 * pos / torch.tensor([w - 1, h - 1], device=dev) - 1
+    img_cf = img.permute(0, 3, 1, 2).contiguous()
+    tiles = -(-h // 64) * -(-w // 128)
+    off = kernels.warp_tile_offsets(flow)
+    # the kernel's one-channel-a-block form: three channels, and two
+    # channels at an address off an 8-byte boundary
+    # (a generator of their own: the other cases keep their inputs)
+    extra = np.random.default_rng(1)
+    img3 = torch.from_numpy(
+        extra.standard_normal((b, h, w, 3), np.float32)).to(dev)
+    odd = torch.from_numpy(extra.standard_normal(
+        b * h * w * 2 + 1, np.float32)).to(dev)[1:].view(b, h, w, 2)
+    check(odd.data_ptr() % 8 == 4, "the offset view is 8-byte aligned")
+    cases = [dict(name="warp_tiled", variant=variant, dims=list(im.shape),
+                  tol=WARP_TOL, check_only=True,
+                  kernel=lambda im=im: kernels.warp_tiled(im, flow),
+                  plain=lambda im=im: kernels.warp_tiled_plain(im, flow))
+             for variant, im in (("three channels", img3),
+                                 ("unaligned", odd))]
+    cases.append(dict(
+        name="warp_tiled", dims=[b, h, w, 2], tol=WARP_TOL,
+        kernel=lambda: kernels.warp_tiled(img, flow),
+        plain=lambda: kernels.warp_tiled_plain(img, flow),
+        library=lambda: F.grid_sample(
+            img_cf, grid, mode="bilinear", padding_mode="border",
+            align_corners=True).permute(0, 2, 3, 1),
+        # the wrapper's two parts: its torch ops before the launch (the
+        # per-tile offsets), and the call on offsets made before
+        glue=lambda: kernels.warp_tile_offsets(flow),
+        launch=lambda: kernels.warp_tiled(img, flow, off),
+        nbytes=4 * (6 * px + 2 * b * tiles), ops=WARP_OPS * px))
 
+    x = planes((2 * b, h, w), 0.5)
+    c = torch.from_numpy(rng.random((b, h, w), np.float32)).to(dev)
+    cases.append(dict(
+        name="median5_diffuse", dims=[2 * b, h, w], tol=MEDIAN_TOL,
+        kernel=lambda: kernels.median5_diffuse(x, c),
+        plain=lambda: kernels.median5_diffuse_plain(x, c),
+        nbytes=4 * 5 * px, ops=(MEDIAN_OPS + 2 * 2 * kw + 4) * 2 * px))
+    cases.append(dict(
+        name="median5", dims=[2 * b, h, w], tol=0.0,
+        kernel=lambda: kernels.median5(x),
+        plain=lambda: kernels.median5_plain(x),
+        nbytes=4 * 4 * px, ops=MEDIAN_OPS * 2 * px))
+
+    shape = (b, h, w)
+    fx, fy = planes(shape, 0.5), planes(shape, 0.5)
+    mask = torch.from_numpy(
+        (rng.random(shape) > 0.1).astype(np.float32)).to(dev)
+    rp = [fx, fy, fx + planes(shape), fy + planes(shape), planes(shape),
+          planes(shape), planes(shape), planes(shape), mask]
+    relax = dict(tol=RELAX_TOL, max_share=RELAX_MAX_SHARE)
+    cases.append(dict(
+        name="relax_phase", dims=list(shape), iters=iters, **relax,
+        kernel=lambda: kernels.relax_phase(*rp, params, iters, D),
+        plain=lambda: kernels.relax_phase_fused_plain(*rp, params, iters, D),
+        nbytes=4 * 11 * px,
+        ops=(iters * RELAX_OPS_PER_ITER + 2 * 2 * kw * 2) * px))
+    up = rp[:8] + [planes(shape, 0.5), planes(shape, 0.5), mask]
+    # the table keeps the last headline time: 3 iterations, the production
+    # count of the fused kernel
+    for it in (2, 3):
+        cases.append(dict(
+            name="relax_phase_unfused", dims=list(shape), iters=it, **relax,
+            kernel=lambda it=it: kernels.relax_phase_unfused(*up, params, it,
+                                                             D),
+            plain=lambda it=it: kernels.relax_phase_unfused_plain(
+                *up, params, it, D),
+            nbytes=4 * 13 * px, ops=it * RELAX_OPS_PER_ITER * px))
+    return cases
+
+
+def as_tensor(out):
+    import torch
+
+    return torch.stack(out) if isinstance(out, tuple) else out
+
+
+def phase_b(dev) -> dict:
+    """Each kernel against its plain version at a ragged shape and at the
+    headline finest-level shapes; returns {kernel: {max_abs_err, ms,
+    plain_ms, library_ms, bound_ms, bound_by, ...}}."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(0)
     results = {name: {"max_abs_err": 0.0} for name in KERNEL_FILES}
-
-    # the table keeps the last headline time: the unfused relax at 3
-    # iterations, the production count of the fused one
-    def record(name, tag, dims, err, tol, kernel_fn, plain_fn, extra=()):
-        rec = {"phase": "B", "kernel": name, "shape": tag, "dims": dims,
-               "max_abs_err": err, "tol": tol, **dict(extra)}
-        if tag == "headline":
-            rec["ms"] = cuda_ms(kernel_fn, 20)
-            rec["plain_ms"] = cuda_ms(plain_fn, 5)
-            results[name].update(ms=rec["ms"], plain_ms=rec["plain_ms"])
-        results[name]["max_abs_err"] = max(err,
-                                           results[name]["max_abs_err"])
-        emit(rec)
-
     for tag, (b, h, w) in B_SHAPES:
-        img = planes((b, h, w, 2), 1.0)
-        flow = smooth_flow(b, h, w)
-        got = kernels.warp_tiled(img, flow)
-        torch.cuda.synchronize()
-        err = (got - kernels.warp_tiled_plain(img, flow)).abs().max().item()
-        record("warp_tiled", tag, [b, h, w, 2], err, WARP_TOL,
-               lambda: kernels.warp_tiled(img, flow),
-               lambda: kernels.warp_tiled_plain(img, flow))
-        check(err <= WARP_TOL, f"warp_tiled {tag}: {err} > {WARP_TOL}")
-
-        x = planes((2 * b, h, w), 0.5)
-        c = torch.from_numpy(rng.random((b, h, w), np.float32)).to(dev)
-        got = kernels.median5_diffuse(x, c)
-        torch.cuda.synchronize()
-        err = (got - kernels.median5_diffuse_plain(x, c)).abs().max().item()
-        record("median5_diffuse", tag, [2 * b, h, w], err, MEDIAN_TOL,
-               lambda: kernels.median5_diffuse(x, c),
-               lambda: kernels.median5_diffuse_plain(x, c))
-        check(err <= MEDIAN_TOL, f"median5_diffuse {tag}: {err}")
-
-        got = kernels.median5(x)
-        torch.cuda.synchronize()
-        exact = bool(torch.equal(got, kernels.median5_plain(x)))
-        err = (got - kernels.median5_plain(x)).abs().max().item()
-        record("median5", tag, [2 * b, h, w], err, 0.0,
-               lambda: kernels.median5(x),
-               lambda: kernels.median5_plain(x), (("bit_exact", exact),))
-        check(exact, f"median5 {tag}: not bit-identical ({err})")
-
-        shape = (b, h, w)
-        fx, fy = planes(shape, 0.5), planes(shape, 0.5)
-        mask = torch.from_numpy(
-            (rng.random(shape) > 0.1).astype(np.float32)).to(dev)
-        rp = [fx, fy, fx + planes(shape), fy + planes(shape), planes(shape),
-              planes(shape), planes(shape), planes(shape), mask]
-        got = torch.stack(kernels.relax_phase(*rp, params, iters, D))
-        torch.cuda.synchronize()
-        ref = torch.stack(kernels.relax_phase_fused_plain(*rp, params, iters,
-                                                          D))
-        diff = (got - ref).abs().amax(dim=0)
-        err = diff.max().item()
-        share = (diff > RELAX_TOL).float().mean().item()
-        record("relax_phase", tag, list(shape), err, RELAX_TOL,
-               lambda: kernels.relax_phase(*rp, params, iters, D),
-               lambda: kernels.relax_phase_fused_plain(*rp, params, iters,
-                                                       D),
-               (("share_over_tol", share), ("max_share", RELAX_MAX_SHARE)))
-        check(share < RELAX_MAX_SHARE, f"relax_phase {tag}: share {share}")
-
-        up = rp[:8] + [planes(shape, 0.5), planes(shape, 0.5), mask]
-        for it in (2, 3):
-            got = torch.stack(kernels.relax_phase_unfused(*up, params, it, D))
+        for case in kernel_cases(dev, rng, b, h, w):
+            name = case["name"]
+            got = as_tensor(case["kernel"]())
             torch.cuda.synchronize()
-            ref = torch.stack(kernels.relax_phase_unfused_plain(*up, params,
-                                                                it, D))
-            diff = (got - ref).abs().amax(dim=0)
+            diff = (got - as_tensor(case["plain"]())).abs()
             err = diff.max().item()
-            share = (diff > RELAX_TOL).float().mean().item()
-            record("relax_phase_unfused", tag, list(shape), err, RELAX_TOL,
-                   lambda it=it: kernels.relax_phase_unfused(*up, params,
-                                                             it, D),
-                   lambda it=it: kernels.relax_phase_unfused_plain(
-                       *up, params, it, D),
-                   (("iters", it), ("share_over_tol", share),
-                    ("max_share", RELAX_MAX_SHARE)))
-            check(share < RELAX_MAX_SHARE,
-                  f"relax_phase_unfused {tag} iters={it}: share {share}")
-        del img, flow, got, ref, x, c, rp, up, diff
-    torch.cuda.empty_cache()
+            rec = {"phase": "B", "kernel": name, "shape": tag,
+                   "dims": case["dims"], "max_abs_err": err,
+                   "tol": case["tol"]}
+            for key in ("iters", "variant"):
+                if key in case:
+                    rec[key] = case[key]
+            if "max_share" in case:
+                # a flipped strict-< take moves a pixel by more than the
+                # tolerance: the gate is the share of such pixels
+                share = (diff.amax(dim=0) > case["tol"]).float().mean().item()
+                rec.update(share_over_tol=share, max_share=case["max_share"])
+                ok = share < case["max_share"]
+            else:
+                ok = err <= case["tol"]
+            if tag == "headline" and not case.get("check_only"):
+                timed = {"ms": cuda_ms(case["kernel"], 20),
+                         "plain_ms": cuda_ms(case["plain"], 5),
+                         "library_ms": None,
+                         **bound(case["nbytes"], case["ops"])}
+                if "library" in case:
+                    timed["library_ms"] = cuda_ms(case["library"], 20)
+                    # equal where the residual stays inside its clamp
+                    timed["library_max_abs_diff"] = \
+                        (got - case["library"]()).abs().max().item()
+                if "glue" in case:
+                    timed["glue_ms"] = cuda_ms(case["glue"], 20)
+                    timed["launch_ms"] = cuda_ms(case["launch"], 20)
+                rec.update(timed)
+                results[name].update(timed)
+            results[name]["max_abs_err"] = max(err,
+                                               results[name]["max_abs_err"])
+            emit(rec)
+            check(ok, f"{name} {tag}: {rec}")
+            del got, diff
+        torch.cuda.empty_cache()
     return results
+
+
+def time_against(other_csrc: str, dev) -> None:
+    """Every kernel of this tree and of the sources in ``other_csrc`` (an
+    earlier commit's csrc/, same C interface) on the same inputs, timed in
+    turns (other, this, this, other) within one process on one card."""
+    import numpy as np
+    import torch
+
+    from panorama_opticalflow_tpu_torch.ops import build
+
+    libs = {"other": build.open_library(os.path.abspath(other_csrc)),
+            "this": build.load()}
+    rng = np.random.default_rng(0)
+    for tag, (b, h, w) in B_SHAPES:
+        for case in kernel_cases(dev, rng, b, h, w):
+            if case.get("check_only"):
+                continue
+            times, outs = {"other": [], "this": []}, {}
+            for side in ("other", "this", "this", "other"):
+                build.use_library(libs[side])
+                times[side].append(cuda_ms(case["kernel"], 20))
+                outs[side] = as_tensor(case["kernel"]())
+            build.use_library(libs["this"])
+            emit({"phase": "time_against", "kernel": case["name"],
+                  "shape": tag, "dims": case["dims"],
+                  "iters": case.get("iters"), "other_ms": times["other"],
+                  "this_ms": times["this"],
+                  "bit_same_share": (outs["this"] == outs["other"])
+                  .float().mean().item(),
+                  "max_abs_diff": (outs["this"] - outs["other"]).abs()
+                  .max().item()})
+        torch.cuda.empty_cache()
+
+
+def profile_stitch(flow_alg: str, dev) -> None:
+    """torch.profiler over one warm 9000 x 4000 stitch_six: device time by
+    kernel name, the launch count and the card's idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import panorama_opticalflow_tpu_torch as port
+    from panorama_opticalflow_tpu_torch.models import pipeline
+
+    photos_d, top_d, _ = headline_set(dev)
+    cfg = port.StitchConfig(flow_alg=flow_alg)
+    pipeline.stitch_six(photos_d, top_d, cfg, device=dev)   # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipeline.stitch_six(photos_d, top_d, cfg, device=dev)
+    torch.cuda.synchronize()
+    latency = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pipeline.stitch_six(photos_d, top_d, cfg, device=dev)
+        torch.cuda.synchronize()
+        profiled = time.perf_counter() - t0
+    rows = [(e.key, getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0)) / 1e3,
+             e.count) for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")]
+    rows.sort(key=lambda r: -r[1])
+    device_ms = sum(r[1] for r in rows)
+    emit({"phase": "profile", "flow_alg": flow_alg,
+          "latency_s_unprofiled": latency, "latency_s_profiled": profiled,
+          "device_ms": device_ms, "launches": sum(r[2] for r in rows),
+          "idle_share_of_unprofiled": 1 - device_ms / 1e3 / latency,
+          "hand_written": [
+              {"name": k.split("(anonymous namespace)::")[1].split("(")[0],
+               "ms": ms, "count": n} for k, ms, n in rows
+              if k.startswith("void (anonymous namespace)::")],
+          "top": [{"name": k[:80], "ms": ms, "count": n}
+                  for k, ms, n in rows[:14]]})
 
 
 def expected_launches(windows, canvas_h: int, params) -> dict:
@@ -485,6 +661,7 @@ def phase_f(dev, photos_d, top_d) -> dict:
     h, w = HEADLINE
     base = port.StitchConfig(flow_alg="pixflow_low")
     windows = crop.plan_chain_windows(photos_d, top_d, base)
+    check(windows == HEADLINE_WINDOWS, f"phase F windows {windows}")
     prod, launches = None, {}
     for knob, changes in SCHEDULES.items():
         cfg = with_flow_params(base, **changes)
@@ -546,7 +723,17 @@ def phase_g(dev, photos_d, top_d) -> dict:
 
 
 def main() -> None:
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--time-against", metavar="CSRC",
+                      help="time every kernel against the sources in CSRC")
+    mode.add_argument("--profile", metavar="FLOW_ALG",
+                      help="torch.profiler over one 9000x4000 stitch")
+    args = ap.parse_args()
 
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
@@ -557,6 +744,13 @@ def main() -> None:
     smi = nvidia_smi()
 
     phase_a(smi)
+    if args.time_against or args.profile:
+        if args.time_against:
+            time_against(args.time_against, dev)
+        else:
+            profile_stitch(args.profile, dev)
+        print(smi, flush=True)
+        return
     results = phase_b(dev)
     photos_d, top_d, setup_s = headline_set(dev)
     launches_c, pair = phase_c(dev, photos_d, top_d, setup_s)
@@ -565,19 +759,29 @@ def main() -> None:
     del pair
     torch.cuda.empty_cache()
     phase_e(dev)
-    counts = [launches_c, *phase_f(dev, photos_d, top_d).values(),
+    launches_f = phase_f(dev, photos_d, top_d)
+    counts = [launches_c, *launches_f.values(),
               phase_g(dev, photos_d, top_d)]
     launches = {name: sum(c[name] for c in counts) for name in KERNEL_FILES}
     for name, n in launches.items():
         check(n > 0, f"{name} was never launched on a main path")
 
+    # one stitch of each preset, as counted in phase C and in phase F's
+    # production run (each checked against expected_launches there)
+    per_stitch = {"pixflow_low_fast": launches_c,
+                  "pixflow_low": launches_f["production"]}
     emit({"kernels": [
         {"name": name, "route": "cuda",
          "source": "panorama_opticalflow_tpu_torch/" + KERNEL_FILES[name][0],
          "replaces": "panorama_opticalflow_tpu/ops/pallas/kernels.py:"
                      f"{KERNEL_FILES[name][1]}",
-         "launches": launches[name], "max_abs_err": r["max_abs_err"],
-         "ms": r["ms"], "plain_ms": r["plain_ms"]}
+         "launches": launches[name],
+         "launches_per_stitch": {alg: n[name]
+                                 for alg, n in per_stitch.items()},
+         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+         "bound_by": r["bound_by"], "bound_ms_no_fma": r["bound_ms_no_fma"],
+         "library_ms": r["library_ms"]}
         for name, r in results.items()]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -4,12 +4,12 @@ The JAX package ``panorama_opticalflow_tpu`` is the reference; this
 package mirrors its module names (``ops.image``, ``models.pixflow``, ...)
 and is held against it on identical inputs by ``tests/test_torch_*.py``.
 
-It imports ``torch`` and never ``jax``, and nothing of the JAX package
-outside the CLI's file I/O.  Public functions keep the reference's
+It imports ``torch`` and never ``jax``, and nothing of the JAX package.
+Public functions keep the reference's
 layouts: (H, W, 4) uint8 RGBA canvases, (H, W, 2) float32 flows as
 (fx, fy), and channel-split (2B, H, W) planes inside the solver.
 
-The three Pallas kernels of the main path are hand-written CUDA kernels
+The five Pallas kernels of the reference are hand-written CUDA kernels
 here (``csrc/``, wrapped by ``ops.kernels``).  For the port, the
 ``FlowParams`` fields ``use_pallas``, ``warp_pallas``, ``pallas_min_pixels``
 and ``fuse_level_blurs`` mean "use the hand-written kernels"; a wrapper

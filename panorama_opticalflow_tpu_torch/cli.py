@@ -8,8 +8,8 @@
   python -m panorama_opticalflow_tpu_torch.cli stitch6 --test_dir DIR \
       --top_img top.tif --flow_alg pixflow_low_fast [--device cuda]
 
-File I/O reuses the JAX package's jax-free ``utils/io`` and
-``utils/native_io`` (PIL, or the native PNG/TIFF codec where it builds).
+File I/O is the port's ``utils.io`` (PIL, or the native PNG/TIFF codec
+where it builds).
 """
 
 from __future__ import annotations
@@ -19,9 +19,8 @@ import os
 import sys
 import time
 
-from panorama_opticalflow_tpu.utils import io as pio
-from panorama_opticalflow_tpu.utils import native_io as nio
 from panorama_opticalflow_tpu_torch import synthesize_fisheye_set, to_numpy
+from panorama_opticalflow_tpu_torch.utils import io as pio
 from panorama_opticalflow_tpu_torch.utils.config import StitchConfig
 
 
@@ -34,7 +33,7 @@ def _load(test_dir: str, name: str):
     for ext in ("", ".tif", ".tiff", ".png"):
         path = os.path.join(test_dir, name + ext)
         if os.path.exists(path):
-            return nio.read_image_rgba_fast(path)
+            return pio.read_image_rgba_fast(path)
     raise pio.PanoIOError(
         f"failed to load image: {os.path.join(test_dir, name)}")
 
@@ -55,7 +54,7 @@ def cmd_stitch6(args) -> None:
 
     def on_part(i, result):
         name = "FinalResult.png" if i == 5 else f"ProcessResult{i}.png"
-        nio.write_image_fast(os.path.join(args.test_dir, name),
+        pio.write_image_fast(os.path.join(args.test_dir, name),
                              to_numpy(result))
         print(f"Part{i} finished! RUNTIME (sec) = "
               f"{time.perf_counter() - t0:.3f}", flush=True)
@@ -70,8 +69,8 @@ def cmd_synth(args) -> None:
     photos, top = synthesize_fisheye_set(args.height, args.width,
                                          seed=args.seed)
     for i, img in enumerate(photos, start=1):
-        nio.write_image_fast(os.path.join(args.test_dir, f"{i}.tif"), img)
-    nio.write_image_fast(os.path.join(args.test_dir, "top.tif"), top)
+        pio.write_image_fast(os.path.join(args.test_dir, f"{i}.tif"), img)
+    pio.write_image_fast(os.path.join(args.test_dir, "top.tif"), top)
     print(f"wrote synthetic set to {args.test_dir}", flush=True)
 
 

@@ -32,6 +32,19 @@ __device__ __forceinline__ float dhat(float t) {
   return fabsf(t) < 1.f ? -sgn(t) : 0.f;
 }
 
+// A hat pass with its exact-zero taps left out: max(0, 1 - |d - t|) is not
+// zero at t = floor(d) and floor(d) + 1 only, so 0 + w0 * v0 + w1 * v1 with
+// every product and sum rounded on its own has the bits of the dense sum
+// over all taps in ascending order.  dhat is zero at the same taps.
+__device__ __forceinline__ float tap2(float w0, float v0, float w1, float v1) {
+  return (0.f + w0 * v0) + w1 * v1;
+}
+
+__device__ __forceinline__ float2 tap2(float w0, float2 v0, float w1,
+                                       float2 v1) {
+  return make_float2(tap2(w0, v0.x, w1, v1.x), tap2(w0, v0.y, w1, v1.y));
+}
+
 __device__ __forceinline__ void cswap(float& a, float& b) {
   const float lo = fminf(a, b), hi = fmaxf(a, b);
   a = lo;

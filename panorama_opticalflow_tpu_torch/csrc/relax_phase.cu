@@ -1,5 +1,5 @@
 // One relaxation phase of the pixflow solver: K Jacobi iterations of
-// 4-neighbour propagation + descent, in two variants (FUSE_BF):
+// 4-neighbour propagation + descent, in two variants:
 //   fused    the blurred-flow target is computed in the kernel from f_base;
 //            replaces relax_phase_pallas(..., fuse_bf=True), the
 //            relaxation of every fused single-phase pyramid level;
@@ -8,15 +8,15 @@
 //            each phase of multi-phase levels (relax_phases > 1) and of
 //            levels with fuse_level_blurs=False.
 // Both Pallas variants are _relax_phase_impl in
-// panorama_opticalflow_tpu/ops/pallas/kernels.py.
+// panorama_opticalflow_tpu/ops/pallas/kernels.py.  The two differ only in
+// how a block gets its target, so they are one kernel with a flag.
 //
 // Contract (= ops.kernels.relax_phase_fused_plain / _unfused_plain): every
-// plane is edge-padded by halo = K + D + 2 around each output tile and
-// iterated on that window with edge-replicated shifts at the window
-// border; the fused variant's regularisation target is the separable
-// k-tap Gaussian of the edge-padded f_base, x pass first, the unfused
-// variant reads bfx/bfy with the same clamped indices as every other
-// plane.  Per iteration:
+// plane is edge-padded by a halo around each output tile and iterated on
+// that window with edge-replicated shifts at the window border; the fused
+// variant's regularisation target is the separable k-tap Gaussian of the
+// edge-padded f_base, x pass first, the unfused variant reads bfx/bfy with
+// the same clamped indices as every other plane.  Per iteration:
 //   pass A  samples the bf16-quantised warped gradients w1 with a D-wide
 //           separable hat window at the own offset and for the 4
 //           neighbour candidates, error = data + smooth*|bf - f|
@@ -25,36 +25,98 @@
 //   pass B  one descent step from the analytic dhat derivative maps, at
 //           pixels whose update mask is > 0.
 // The output tile does not depend on the tile size: the halo covers the
-// reach of K iterations.
+// reach of K iterations (K + D + 2 rows as in the reference; K columns,
+// because an iteration reaches one column: a candidate is a horizontal
+// neighbour's flow, and every x-pass value a pixel reads lies in its own
+// column).
 //
-// Bound on the H100: arithmetic and shared-memory bandwidth.  One phase
-// reads 9 planes and writes 2 (44 bytes a pixel), but does 4 x-passes and
-// ~14 y-passes of (2D+1) taps per iteration and a 15 x 15 separable blur,
-// a few thousand flops a pixel.  Design: one block per (32, 64) output
-// tile and flow direction; the K iterations stay in shared memory (the
-// flow state, blurred target, accepted candidate and its sample, one
-// derivative map and one x-pass buffer pair: 177 KB at K=3, D=2, for
-// both variants), so device memory is touched once per phase as in the
-// reference kernel.  The fused variant's blur scratch reuses the buffers
-// that the iterations fill later; the unfused one needs none.
-// The neighbour sample maps are not stored: each pixel evaluates its
-// neighbours' y passes from the shared x-pass buffer.  Inputs read only
-// once a pass (f_base, i0, mask, w1) are read from device memory with
-// clamped indices (the reference's edge padding) and served by L1/L2.
+// Bound on the H100: operations (about 300 an iteration and pixel in the
+// least-work form, against 44 or 52 bytes a pixel), in practice the
+// instruction throughput, since every product and sum is its own
+// instruction (-fmad=false) and each pixel takes 12 IEEE square roots an
+// iteration.  The reference sums all 2D + 1 taps of every hat pass because
+// a TPU cannot gather; a hat weight is an exact zero at every tap but
+// floor(d) and floor(d) + 1, and so is its derivative.  Design:
+//   * two-tap gather in every pass.  An x pass reads its two w1 taps once
+//     and, in pass B, forms the hat and the dhat sums from them; a y sum
+//     reads two rows of the x-pass buffer.  Sums start at 0 and add the
+//     taps ascending, so the bits are those of the dense sums.
+//   * D and the iteration count the window is built for are template
+//     parameters: the window is a constant, no run-time division, and a
+//     thread owns the same PIX pixels of the window through every step.
+//     What only the owner reads again (f_base, the accepted flow and its
+//     sample, the mask) lives in its registers.
+//   * What the iterations read again is staged in shared memory once a
+//     block, already clamped, by asynchronous copies that are all in
+//     flight together: w1 (then rounded to bf16 once, in place), i0, the
+//     target, the flow state and its clamped y offset, both channels of a
+//     pixel in one float2.  No device-memory read is left inside the
+//     iterations.  The fused variant stages w1 over its dead blur source
+//     while the blur's y pass runs.
+//   * A thread evaluates the x pass at its own pixels, and the owners of
+//     the window's first and last row also fill the rows that extend
+//     their offset beyond the window, so an x pass needs no second sweep.
+//     Four barriers an iteration.
+//   * One block of 1024 threads an SM.  The staging needs about 220 KB
+//     whatever the tile's shape, so a second block never fits; the
+//     iterations are bound by latency between barriers until the SM holds
+//     its 32 warps (512 threads with 8 pixels each took 1.6 times as
+//     long).  The tile is the tallest whose window fits PIX * THREADS
+//     owned pixels and the 227 KB of a block: 44 x 64 at K <= 3, D = 2,
+//     so 69 % of the window is output.  Windows are built for K = 3, 5 and
+//     7; a K in between runs in the next larger one, which changes no
+//     output bit.  A window of fewer than 24 tile rows is refused: the
+//     wrapper raises with the bytes it would need.
 #include <cuda_bf16.h>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int RTH = 32;
 constexpr int RTW = 64;
-constexpr int THREADS = 512;
+constexpr int THREADS = 1024;
+constexpr int PIX = 4;         // window pixels a thread owns
+constexpr int MIN_ROWS = 24;   // fewest tile rows of a window
+constexpr int BLUR_TAPS = 15;  // the presets' target blur, unrolled
+constexpr size_t SMEM_MAX = 227 * 1024;  // of one block on sm_90
+
+// the iteration count a window is built for: 3, 5 or 7 (beyond 7 none is)
+constexpr int built_iters(int iters) {
+  return iters <= 3 ? 3 : iters <= 5 ? 5 : iters <= 7 ? 7 : iters;
+}
+
+// Window of a block that runs up to KB iterations: the tile plus a halo of
+// KB + D + 2 rows and KB columns each side.
+struct Window {
+  int hy, hx, the, twe, xr, ww;
+  __host__ __device__ constexpr Window(int D_, int kb, int the_)
+      : hy(kb + D_ + 2), hx(kb), the(the_), twe(RTW + 2 * kb),
+        xr(the_ + 2 * (D_ + 1)), ww(RTW + 2 * kb + 2 * D_) {}
+  __host__ __device__ constexpr int pixels() const { return the * twe; }
+  // an x-pass buffer, the w1 window
+  __host__ __device__ constexpr int nx() const { return xr * twe; }
+  __host__ __device__ constexpr int nw() const { return xr * ww; }
+  // flow, i0 and target as float2 and the y offset as float a pixel; two
+  // x-pass buffers and w1 as float2
+  __host__ __device__ constexpr size_t bytes() const {
+    return 28 * (size_t)pixels() + 16 * (size_t)nx() + 8 * (size_t)nw();
+  }
+};
+
+// as many rows as PIX * THREADS owned pixels and the shared memory allow,
+// and never fewer than MIN_ROWS tile rows
+__host__ __device__ constexpr Window make_window(int D, int kb) {
+  const int least = MIN_ROWS + 2 * (kb + D + 2);
+  int the = PIX * THREADS / (RTW + 2 * kb);
+  while (the > least && Window(D, kb, the).bytes() > SMEM_MAX) --the;
+  return Window(D, kb, the < least ? least : the);
+}
 
 struct Scalars {
   float lim, smooth, step, vreg_w, hreg_w;
-  int fold, w1_bf16;
+  int fold, w1_bf16, fuse_bf, iters;
 };
 
 struct Planes {
@@ -63,265 +125,273 @@ struct Planes {
   float *ofx, *ofy;
 };
 
-template <int D>
-struct Relax {
-  // window geometry of one block
-  int h, w, halo, the, twe, xr, xw, gy0, gx0;
-  size_t plane;
-  Planes p;
-  Scalars s;
+// (a.x, a.y) <- (gx[o], gy[o]) without a register in between
+__device__ __forceinline__ void stage(float2* a, const float* gx,
+                                      const float* gy, size_t o) {
+  __pipeline_memcpy_async(&a->x, gx + o, sizeof(float));
+  __pipeline_memcpy_async(&a->y, gy + o, sizeof(float));
+}
 
-  __device__ Relax(const Planes& p_, const Scalars& s_, int h_, int w_,
-                   int iters)
-      : h(h_), w(w_), p(p_), s(s_) {
-    halo = iters + D + 2;
-    the = RTH + 2 * halo;
-    twe = RTW + 2 * halo;
-    xr = the + 2 * (D + 1);
-    xw = twe + 2;
-    gy0 = blockIdx.y * RTH - halo;
-    gx0 = blockIdx.x * RTW - halo;
-    plane = (size_t)blockIdx.z * h * w;
+// X(r,c) = sum_ox hat(dx - ox) * W1[r, c+ox] at the pixel's own position
+// and, for a pixel of the window's first or last row, on the rows that
+// edge-extend its offset down to -(D+1) and up to THE+D.  With DERIV also
+// Xd, the same sum with dhat weights, from the same two taps.
+template <int D, int KB, bool DERIV>
+__device__ __forceinline__ void x_pass(float dx, int r, int c,
+                                       const float2* W1, float2* X,
+                                       float2* Xd) {
+  constexpr Window G = make_window(D, KB);
+  const float fl = floorf(dx);
+  const float t0 = dx - fl, t1 = dx - (fl + 1.f);
+  const float h0 = pano::hat(t0), h1 = pano::hat(t1);
+  const float d0 = pano::dhat(t0), d1 = pano::dhat(t1);
+  const int r_lo = r == 0 ? -(D + 1) : r;
+  const int r_hi = r == G.the - 1 ? G.the + D : r;
+  for (int rr = r_lo; rr <= r_hi; ++rr) {
+    const float2* q = W1 + (rr + D + 1) * G.ww + c + D + (int)fl;
+    const float2 v0 = q[0], v1 = q[1];
+    const int k = (rr + D + 1) * G.twe + c;
+    X[k] = pano::tap2(h0, v0, h1, v1);
+    if (DERIV) Xd[k] = pano::tap2(d0, v0, d1, v1);
   }
+}
 
-  // global value of a plane at window coords (r, c), edge-clamped
-  __device__ float g(const float* a, int r, int c) const {
-    const int y = pano::clampi(gy0 + r, 0, h - 1);
-    const int x = pano::clampi(gx0 + c, 0, w - 1);
-    return a[plane + (size_t)y * w + x];
-  }
+// sum_oy hat(d - oy) * X[r + oy][c], r in window coordinates (the caller
+// adds a neighbour's row offset)
+template <int D, int KB>
+__device__ __forceinline__ float2 y_sum(const float2* X, float d, int r,
+                                        int c) {
+  constexpr Window G = make_window(D, KB);
+  const float fl = floorf(d);
+  const float2* q = X + (r + (int)fl + D + 1) * G.twe + c;
+  return pano::tap2(pano::hat(d - fl), q[0], pano::hat(d - (fl + 1.f)),
+                    q[G.twe]);
+}
 
-  __device__ float w1(const float* a, int r, int c) const {
-    const float v = g(a, r, c);
-    return s.w1_bf16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
-  }
-
-  // X(r,c) = sum_ox wfn(dx(r,c) - ox) * W1[r, c+ox] over rows
-  // [-(D+1), the+D+1) and cols [-1, twe+1), dx edge-extended at the
-  // window border; dx = clip(f(r,c) - bx(r,c)) from the window state f
-  template <bool DERIV>
-  __device__ void x_pass(const float* f, float* Xx, float* Xy) const {
-    for (int k = threadIdx.x; k < xr * xw; k += blockDim.x) {
-      const int r = k / xw - (D + 1), c = k % xw - 1;
-      const int rc = pano::clampi(r, 0, the - 1);
-      const int cc = pano::clampi(c, 0, twe - 1);
-      const float dx =
-          pano::clampf(f[rc * twe + cc] - g(p.bx, rc, cc), -s.lim, s.lim);
-      float ax = 0.f, ay = 0.f;
+// sum_t taps[t] * in[t * stride] on both planes, taps ascending; NT is the
+// tap count when it is known at compile time (unrolled), else 0
+template <int NT>
+__device__ __forceinline__ float2 blur_sum(const pano::Taps& taps,
+                                           const float2* in, int stride) {
+  float2 acc = make_float2(0.f, 0.f);
+  const int n = NT ? NT : taps.n;
 #pragma unroll
-      for (int ox = -D; ox <= D; ++ox) {
-        const float wt = DERIV ? pano::dhat(dx - (float)ox)
-                               : pano::hat(dx - (float)ox);
-        ax = ax + wt * w1(p.w1x, r, c + ox);
-        ay = ay + wt * w1(p.w1y, r, c + ox);
-      }
-      Xx[k] = ax;
-      Xy[k] = ay;
+  for (int t = 0; t < n; ++t) {
+    const float2 v = in[t * stride];
+    acc.x = acc.x + taps.v[t] * v.x;
+    acc.y = acc.y + taps.v[t] * v.y;
+  }
+  return acc;
+}
+
+__device__ __forceinline__ float err(const Scalars& s, float2 sv, float2 cf,
+                                     float2 i0, float2 bf) {
+  const float d0 = i0.x - sv.x, d1 = i0.y - sv.y;
+  const float data = sqrtf(d0 * d0 + d1 * d1);
+  const float fdx = bf.x - cf.x, fdy = bf.y - cf.y;
+  const float sm = sqrtf(fdx * fdx + fdy * fdy);
+  return data + s.smooth * sm + s.vreg_w * fabsf(cf.y) +
+         s.hreg_w * fabsf(cf.x);
+}
+
+template <int D, int KB>
+__global__ void __launch_bounds__(THREADS, 1)
+relax_phase_kernel(Planes p, Scalars s, pano::Taps taps, int h, int w) {
+  constexpr Window G = make_window(D, KB);
+  constexpr int THE = G.the, TWE = G.twe, A = G.pixels();
+  constexpr int RTH = THE - 2 * G.hy;
+  static_assert(A <= PIX * THREADS, "a thread owns at most PIX pixels");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float2* f = reinterpret_cast<float2*>(smem_raw);  // A   flow state
+  float2* i0 = f + A;                               // A   (i0x, i0y)
+  float2* bf = i0 + A;                              // A   blurred target
+  float2* X = bf + A;                               // nx  x pass, hat
+  float2* Xd = X + G.nx();                          // nx  x pass, dhat
+  float2* W1 = Xd + G.nx();                         // nw  (w1x, w1y)
+  float* dyc = reinterpret_cast<float*>(W1 + G.nw());  // A clamp(fy - by)
+
+  const int tid = threadIdx.x;
+  const int gy0 = blockIdx.y * RTH - G.hy, gx0 = blockIdx.x * RTW - G.hx;
+  const size_t plane = (size_t)blockIdx.z * h * w;
+  // device offset of window coordinates (r, c), edge-clamped
+  auto at = [&](int r, int c) {
+    return plane + (size_t)pano::clampi(gy0 + r, 0, h - 1) * w +
+           pano::clampi(gx0 + c, 0, w - 1);
+  };
+  auto stage_w1 = [&]() {
+    for (int q = tid; q < G.nw(); q += THREADS)
+      stage(W1 + q, p.w1x, p.w1y, at(q / G.ww - (D + 1), q % G.ww - D));
+  };
+
+  // per owned pixel: f_base, the accepted flow and its sample, update bit
+  float2 b[PIX], bestf[PIX], bests[PIX];
+  unsigned upd[(PIX + 31) / 32] = {};
+
+  // Stage the window: asynchronous copies for what goes to shared memory
+  // as it is, so that all of a thread's loads are in flight together.
+#pragma unroll
+  for (int j = 0; j < PIX; ++j) {
+    const int k = tid + j * THREADS;
+    if (k < A) {
+      const size_t o = at(k / TWE, k % TWE);
+      stage(f + k, p.fx, p.fy, o);
+      stage(i0 + k, p.i0x, p.i0y, o);
+      if (!s.fuse_bf) stage(bf + k, p.bfx, p.bfy, o);
+      b[j] = make_float2(p.bx[o], p.by[o]);
+      if (p.mask[o] > 0.f) upd[j / 32] |= 1u << (j % 32);
     }
   }
-
-  // sum_oy wfn(d - oy) * X[r + oy + ro][c + co]
-  template <bool DERIV>
-  __device__ float y_sum(const float* X, float d, int r, int c, int ro,
-                         int co) const {
-    const float* col = X + (r + ro + D + 1) * xw + c + co + 1;
-    float acc = 0.f;
-#pragma unroll
-    for (int oy = -D; oy <= D; ++oy) {
-      const float wt = DERIV ? pano::dhat(d - (float)oy)
-                             : pano::hat(d - (float)oy);
-      acc = acc + wt * col[oy * xw];
-    }
-    return acc;
-  }
-
-  __device__ float err(float sx, float sy, float cfx, float cfy, float i0x,
-                       float i0y, float bfx, float bfy) const {
-    const float d0 = i0x - sx, d1 = i0y - sy;
-    const float data = sqrtf(d0 * d0 + d1 * d1);
-    const float fdx = bfx - cfx, fdy = bfy - cfy;
-    const float sm = sqrtf(fdx * fdx + fdy * fdy);
-    return data + s.smooth * sm + s.vreg_w * fabsf(cfy) +
-           s.hreg_w * fabsf(cfx);
-  }
-};
-
-template <int D, bool FUSE_BF>
-__global__ void __launch_bounds__(THREADS)
-relax_phase_kernel(Planes p, Scalars s, pano::Taps taps, int h, int w,
-                   int iters) {
-  extern __shared__ float smem[];
-  const Relax<D> R(p, s, h, w, iters);
-  const int the = R.the, twe = R.twe, A = the * twe;
-  const int xsz = R.xr * R.xw;
-  float* fx = smem;
-  float* fy = fx + A;
-  float* bfx = fy + A;
-  float* bfy = bfx + A;
-  float* bestfx = bfy + A;
-  float* bestfy = bestfx + A;
-  float* bestsx = bestfy + A;
-  float* bestsy = bestsx + A;
-  float* gyx = bestsy + A;
-  float* gyy = gyx + A;
-  float* Xx = gyy + A;
-  float* Xy = Xx + xsz;
-
-  for (int k = threadIdx.x; k < A; k += blockDim.x) {
-    fx[k] = R.g(p.fx, k / twe, k % twe);
-    fy[k] = R.g(p.fy, k / twe, k % twe);
-  }
-
-  if constexpr (FUSE_BF) {
+  if (s.fuse_bf) {
     // blurred-flow target over the window from the f_base planes, padded
-    // by gr more; scratch lives in the not-yet-used best/gy buffers
+    // by the blur radius more, both planes as one float2.  The scratch is
+    // the x-pass and w1 buffers: the x-pass result first, so that w1 can
+    // be staged over the dead source while the y pass runs.
     const int gr = taps.n / 2;
-    const int bh = the + 2 * gr, bw = twe + 2 * gr;
-    float* src = bestfx;         // bh x bw
-    float* tmp = src + bh * bw;  // bh x twe
-    for (int pl = 0; pl < 2; ++pl) {
-      const float* b = pl ? p.by : p.bx;
-      float* bf = pl ? bfy : bfx;
-      for (int k = threadIdx.x; k < bh * bw; k += blockDim.x)
-        src[k] = R.g(b, k / bw - gr, k % bw - gr);
-      __syncthreads();
-      for (int k = threadIdx.x; k < bh * twe; k += blockDim.x) {
-        const float* row = src + (k / twe) * bw + k % twe;
-        float acc = 0.f;
-        for (int t = 0; t < taps.n; ++t) acc = acc + taps.v[t] * row[t];
-        tmp[k] = acc;
-      }
-      __syncthreads();
-      for (int k = threadIdx.x; k < A; k += blockDim.x) {
-        const float* col = tmp + (k / twe) * twe + k % twe;
-        float acc = 0.f;
-        for (int t = 0; t < taps.n; ++t)
-          acc = acc + taps.v[t] * col[t * twe];
-        bf[k] = acc;
-      }
-      __syncthreads();
+    const int bh = THE + 2 * gr, bw = TWE + 2 * gr;
+    float2* tmp = X;               // bh x TWE
+    float2* src = tmp + bh * TWE;  // bh x bw
+    for (int k = tid; k < bh * bw; k += THREADS)
+      stage(src + k, p.bx, p.by, at(k / bw - gr, k % bw - gr));
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    for (int k = tid; k < bh * TWE; k += THREADS) {
+      const float2* row = src + (k / TWE) * bw + k % TWE;
+      tmp[k] = taps.n == BLUR_TAPS ? blur_sum<BLUR_TAPS>(taps, row, 1)
+                                   : blur_sum<0>(taps, row, 1);
     }
+    __syncthreads();
+    stage_w1();
+    for (int k = tid; k < A; k += THREADS)
+      bf[k] = taps.n == BLUR_TAPS ? blur_sum<BLUR_TAPS>(taps, tmp + k, TWE)
+                                  : blur_sum<0>(taps, tmp + k, TWE);
   } else {
-    // the given target, edge-clamped like every other plane
-    for (int k = threadIdx.x; k < A; k += blockDim.x) {
-      bfx[k] = R.g(p.bfx, k / twe, k % twe);
-      bfy[k] = R.g(p.bfy, k / twe, k % twe);
+    stage_w1();
+  }
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  if (s.w1_bf16)
+    for (int q = tid; q < G.nw(); q += THREADS)
+      W1[q] = make_float2(
+          __bfloat162float(__float2bfloat16_rn(W1[q].x)),
+          __bfloat162float(__float2bfloat16_rn(W1[q].y)));
+#pragma unroll
+  for (int j = 0; j < PIX; ++j) {
+    const int k = tid + j * THREADS;
+    if (k < A) dyc[k] = pano::clampf(f[k].y - b[j].y, -s.lim, s.lim);
+  }
+  __syncthreads();
+
+#pragma unroll 1
+  for (int it = 0; it < s.iters; ++it) {
+    // ---- pass A: propagation ----
+#pragma unroll
+    for (int j = 0; j < PIX; ++j) {
+      const int k = tid + j * THREADS;
+      if (k < A)
+        x_pass<D, KB, false>(
+            pano::clampf(f[k].x - b[j].x, -s.lim, s.lim), k / TWE, k % TWE,
+            W1, X, Xd);
     }
     __syncthreads();
-  }
-
-  for (int it = 0; it < iters; ++it) {
-    // ---- pass A: propagation ----
-    R.template x_pass<false>(fx, Xx, Xy);
-    __syncthreads();
-    for (int k = threadIdx.x; k < A; k += blockDim.x) {
-      const int r = k / twe, c = k % twe;
-      const float i0x = R.g(p.i0x, r, c), i0y = R.g(p.i0y, r, c);
-      const float tbx = bfx[k], tby = bfy[k];
-      const float dy = pano::clampf(fy[k] - R.g(p.by, r, c), -s.lim, s.lim);
-      float bx_ = fx[k], by_ = fy[k];
-      float sx = R.template y_sum<false>(Xx, dy, r, c, 0, 0);
-      float sy = R.template y_sum<false>(Xy, dy, r, c, 0, 0);
-      float be = R.err(sx, sy, bx_, by_, i0x, i0y, tbx, tby);
-      // candidates: from left, up, right, down; each is the neighbour's
-      // flow with the neighbour's own sample map at the +-1 offset
-      const int nr[4] = {r, max(r - 1, 0), r, min(r + 1, the - 1)};
-      const int nc[4] = {max(c - 1, 0), c, min(c + 1, twe - 1), c};
-      const int ro[4] = {0, 1, 0, -1};
-      const int co[4] = {1, 0, -1, 0};
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int n = nr[q] * twe + nc[q];
-        const float cfx = fx[n], cfy = fy[n];
-        const float ndy =
-            pano::clampf(cfy - R.g(p.by, nr[q], nc[q]), -s.lim, s.lim);
-        const float csx =
-            R.template y_sum<false>(Xx, ndy, nr[q], nc[q], ro[q], co[q]);
-        const float csy =
-            R.template y_sum<false>(Xy, ndy, nr[q], nc[q], ro[q], co[q]);
-        const float e = R.err(csx, csy, cfx, cfy, i0x, i0y, tbx, tby);
-        if (e < be) {
-          be = e;
-          bx_ = cfx;
-          by_ = cfy;
-          if (s.fold) {
-            sx = csx;
-            sy = csy;
+    for (int j = 0; j < PIX; ++j) {
+      const int k = tid + j * THREADS;
+      if (k < A) {
+        const int r = k / TWE, c = k % TWE;
+        const float2 iv = i0[k], tv = bf[k];
+        float2 bfv = f[k];
+        float2 sv = y_sum<D, KB>(X, dyc[k], r, c);
+        float be = err(s, sv, bfv, iv, tv);
+        // candidates: from left, up, right, down; each is the neighbour's
+        // flow with the neighbour's own sample map at the +-1 offset, which
+        // for a horizontal neighbour is the pixel's own column
+        const int nr[4] = {r, max(r - 1, 0), r, min(r + 1, THE - 1)};
+        const int nc[4] = {max(c - 1, 0), c, min(c + 1, TWE - 1), c};
+        const int ro[4] = {0, 1, 0, -1};
+        const int co[4] = {1, 0, -1, 0};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int n = nr[q] * TWE + nc[q];
+          const float2 cf = f[n];
+          const float2 cs =
+              y_sum<D, KB>(X, dyc[n], nr[q] + ro[q], nc[q] + co[q]);
+          const float e = err(s, cs, cf, iv, tv);
+          if (e < be) {
+            be = e;
+            bfv = cf;
+            if (s.fold) sv = cs;
           }
         }
+        bestf[j] = bfv;
+        bests[j] = sv;
       }
-      bestfx[k] = bx_;
-      bestfy[k] = by_;
-      bestsx[k] = sx;
-      bestsy[k] = sy;
     }
     __syncthreads();
 
     // ---- pass B: descent at the accepted flow ----
-    R.template x_pass<false>(bestfx, Xx, Xy);
-    __syncthreads();
-    for (int k = threadIdx.x; k < A; k += blockDim.x) {
-      const int r = k / twe, c = k % twe;
-      const float dy2 =
-          pano::clampf(bestfy[k] - R.g(p.by, r, c), -s.lim, s.lim);
-      gyx[k] = R.template y_sum<true>(Xx, dy2, r, c, 0, 0);
-      gyy[k] = R.template y_sum<true>(Xy, dy2, r, c, 0, 0);
-      if (!s.fold) {
-        bestsx[k] = R.template y_sum<false>(Xx, dy2, r, c, 0, 0);
-        bestsy[k] = R.template y_sum<false>(Xy, dy2, r, c, 0, 0);
-      }
+#pragma unroll
+    for (int j = 0; j < PIX; ++j) {
+      const int k = tid + j * THREADS;
+      if (k < A)
+        x_pass<D, KB, true>(
+            pano::clampf(bestf[j].x - b[j].x, -s.lim, s.lim), k / TWE,
+            k % TWE, W1, X, Xd);
     }
     __syncthreads();
-    R.template x_pass<true>(bestfx, Xx, Xy);
-    __syncthreads();
-    for (int k = threadIdx.x; k < A; k += blockDim.x) {
-      const int r = k / twe, c = k % twe;
-      const float bfx_ = bestfx[k], bfy_ = bestfy[k];
-      const float dy2 = pano::clampf(bfy_ - R.g(p.by, r, c), -s.lim, s.lim);
-      const float gxx = R.template y_sum<false>(Xx, dy2, r, c, 0, 0);
-      const float gxy = R.template y_sum<false>(Xy, dy2, r, c, 0, 0);
-      const float d0 = R.g(p.i0x, r, c) - bestsx[k];
-      const float d1 = R.g(p.i0y, r, c) - bestsy[k];
-      const float q = sqrtf(d0 * d0 + d1 * d1);
-      const float inv_q = q > 1e-12f ? 1.f / q : 0.f;
-      const float ddx = -(d0 * gxx + d1 * gxy) * inv_q;
-      const float ddy = -(d0 * gyx[k] + d1 * gyy[k]) * inv_q;
-      const float fdx = bfx[k] - bfx_, fdy = bfy[k] - bfy_;
-      const float sv = sqrtf(fdx * fdx + fdy * fdy);
-      const float inv_s = sv > 1e-12f ? 1.f / sv : 0.f;
-      const float gx = ddx + s.smooth * (-fdx * inv_s) +
-                       s.hreg_w * pano::sgn(bfx_);
-      const float gy = ddy + s.smooth * (-fdy * inv_s) +
-                       s.vreg_w * pano::sgn(bfy_);
-      if (R.g(p.mask, r, c) > 0.f) {
-        fx[k] = bfx_ - s.step * gx;
-        fy[k] = bfy_ - s.step * gy;
+#pragma unroll
+    for (int j = 0; j < PIX; ++j) {
+      const int k = tid + j * THREADS;
+      if (k < A) {
+        const float2 bfv = bestf[j];
+        const float dy2 = pano::clampf(bfv.y - b[j].y, -s.lim, s.lim);
+        const float fl = floorf(dy2);
+        const float t0 = dy2 - fl, t1 = dy2 - (fl + 1.f);
+        const int xk = (k / TWE + (int)fl + D + 1) * TWE + k % TWE;
+        const float2 x0 = X[xk], x1 = X[xk + TWE];
+        const float2 gy = pano::tap2(pano::dhat(t0), x0, pano::dhat(t1), x1);
+        const float2 gx = pano::tap2(pano::hat(t0), Xd[xk], pano::hat(t1),
+                               Xd[xk + TWE]);
+        const float2 sv =
+            s.fold ? bests[j]
+                   : pano::tap2(pano::hat(t0), x0, pano::hat(t1), x1);
+        const float2 iv = i0[k], tv = bf[k];
+        const float d0 = iv.x - sv.x, d1 = iv.y - sv.y;
+        const float q = sqrtf(d0 * d0 + d1 * d1);
+        const float inv_q = q > 1e-12f ? 1.f / q : 0.f;
+        const float ddx = -(d0 * gx.x + d1 * gx.y) * inv_q;
+        const float ddy = -(d0 * gy.x + d1 * gy.y) * inv_q;
+        const float fdx = tv.x - bfv.x, fdy = tv.y - bfv.y;
+        const float sn = sqrtf(fdx * fdx + fdy * fdy);
+        const float inv_s = sn > 1e-12f ? 1.f / sn : 0.f;
+        const float gxs = ddx + s.smooth * (-fdx * inv_s) +
+                          s.hreg_w * pano::sgn(bfv.x);
+        const float gys = ddy + s.smooth * (-fdy * inv_s) +
+                          s.vreg_w * pano::sgn(bfv.y);
+        if (upd[j / 32] >> (j % 32) & 1u) {
+          const float2 nf =
+              make_float2(bfv.x - s.step * gxs, bfv.y - s.step * gys);
+          f[k] = nf;
+          dyc[k] = pano::clampf(nf.y - b[j].y, -s.lim, s.lim);
+        }
       }
     }
     __syncthreads();
   }
 
-  for (int k = threadIdx.x; k < RTH * RTW; k += blockDim.x) {
-    const int yq = k / RTW, xq = k % RTW;
+#pragma unroll
+  for (int j = 0; j < PIX; ++j) {
+    const int k = tid + j * THREADS;
+    const int yq = k / TWE - G.hy, xq = k % TWE - G.hx;
     const int y = blockIdx.y * RTH + yq, x = blockIdx.x * RTW + xq;
-    if (y >= h || x >= w) continue;
-    const int src_k = (yq + R.halo) * twe + xq + R.halo;
-    const size_t dst = R.plane + (size_t)y * w + x;
-    p.ofx[dst] = fx[src_k];
-    p.ofy[dst] = fy[src_k];
+    if (k < A && yq >= 0 && yq < RTH && xq >= 0 && xq < RTW && y < h &&
+        x < w) {
+      const size_t dst = plane + (size_t)y * w + x;
+      p.ofx[dst] = f[k].x;
+      p.ofy[dst] = f[k].y;
+    }
   }
-}
-
-// shared-memory bytes of one block, or 0 when the fused variant's blur
-// scratch does not fit the buffers it borrows
-size_t relax_smem(int iters, int D, int ksize, bool fuse_bf) {
-  const int halo = iters + D + 2, gr = ksize / 2;
-  const size_t the = RTH + 2 * halo, twe = RTW + 2 * halo;
-  const size_t A = the * twe;
-  const size_t X = (the + 2 * (D + 1)) * (twe + 2);
-  const size_t blur = (the + 2 * gr) * (twe + 2 * gr) + (the + 2 * gr) * twe;
-  if (fuse_bf && blur > 6 * A) return 0;  // must fit the 6 spare buffers
-  return (10 * A + 2 * X) * sizeof(float);
 }
 
 // the opt-in shared-memory limit of one block on the current device
@@ -334,41 +404,70 @@ size_t smem_limit() {
   return (size_t)bytes;
 }
 
-template <int D, bool FUSE_BF>
-int launch(const Planes& p, const Scalars& s, const pano::Taps& taps, int nb,
-           int h, int w, int iters, size_t smem, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      relax_phase_kernel<D, FUSE_BF>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((w + RTW - 1) / RTW, (h + RTH - 1) / RTH, nb);
-  relax_phase_kernel<D, FUSE_BF><<<grid, THREADS, smem, stream>>>(
-      p, s, taps, h, w, iters);
-  return (int)cudaGetLastError();
+// the fused variant's blur scratch (float2) against the buffers it borrows:
+// the x-pass result inside the two x-pass buffers, so that staging w1 does
+// not touch it, and its source on to the end of w1
+bool blur_fits(const Window& g, int ksize) {
+  const size_t bh = g.the + 2 * (ksize / 2);
+  return bh * g.twe <= 2 * (size_t)g.nx() &&
+         bh * (g.twe + 2 * (ksize / 2)) + bh * g.twe <=
+             2 * (size_t)g.nx() + g.nw();
 }
 
-template <bool FUSE_BF>
-int dispatch(const Planes& p, const Scalars& s, const pano::Taps& taps,
-             int nb, int h, int w, int iters, int D, int ksize,
-             cudaStream_t st) {
-  if (iters < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = relax_smem(iters, D, ksize, FUSE_BF);
-  if (smem == 0 || smem > smem_limit()) return (int)cudaErrorInvalidValue;
-  switch (D) {
-    case 1: return launch<1, FUSE_BF>(p, s, taps, nb, h, w, iters, smem, st);
-    case 2: return launch<2, FUSE_BF>(p, s, taps, nb, h, w, iters, smem, st);
-    case 3: return launch<3, FUSE_BF>(p, s, taps, nb, h, w, iters, smem, st);
+template <int D, int KB>
+int launch(const Planes& p, const Scalars& s, const pano::Taps& taps, int nb,
+           int h, int w, cudaStream_t stream) {
+  constexpr Window G = make_window(D, KB);
+  if constexpr (G.bytes() <= SMEM_MAX) {
+    cudaError_t err = cudaFuncSetAttribute(
+        relax_phase_kernel<D, KB>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)G.bytes());
+    if (err != cudaSuccess) return (int)err;
+    constexpr int rth = G.the - 2 * G.hy;
+    dim3 grid((w + RTW - 1) / RTW, (h + rth - 1) / rth, nb);
+    relax_phase_kernel<D, KB><<<grid, THREADS, G.bytes(), stream>>>(
+        p, s, taps, h, w);
+    return (int)cudaGetLastError();
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <int D>
+int launch_built(const Planes& p, const Scalars& s, const pano::Taps& taps,
+                 int nb, int h, int w, cudaStream_t st) {
+  switch (built_iters(s.iters)) {
+    case 3: return launch<D, 3>(p, s, taps, nb, h, w, st);
+    case 5: return launch<D, 5>(p, s, taps, nb, h, w, st);
+    case 7: return launch<D, 7>(p, s, taps, nb, h, w, st);
     default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+int dispatch(const Planes& p, const Scalars& s, const pano::Taps& taps,
+             int nb, int h, int w, int D, int ksize, cudaStream_t st) {
+  if (s.iters < 1 || D < 1 || D > 3 ||
+      (s.fuse_bf && !blur_fits(make_window(D, built_iters(s.iters)), ksize)))
+    return (int)cudaErrorInvalidValue;
+  switch (D) {
+    case 1: return launch_built<1>(p, s, taps, nb, h, w, st);
+    case 2: return launch_built<2>(p, s, taps, nb, h, w, st);
+    default: return launch_built<3>(p, s, taps, nb, h, w, st);
   }
 }
 
 }  // namespace
 
-// shared-memory bytes a block of the relax kernel needs (0: refused) and
-// the most the current device allows, for the wrapper's error message
+// Shared-memory bytes a block of the relax kernel needs for the wrapper's
+// error message: 0 when the fused variant's blur scratch does not fit the
+// buffers it borrows, -1 when the window would fit but no kernel is built
+// for so many iterations.
 extern "C" long long pano_relax_smem(int iters, int D, int ksize,
                                      int fuse_bf) {
-  return (long long)relax_smem(iters, D, ksize, fuse_bf != 0);
+  const Window g = make_window(D, built_iters(iters));
+  if (g.bytes() <= SMEM_MAX && iters > 7) return -1;
+  if (g.bytes() <= SMEM_MAX && fuse_bf && !blur_fits(g, ksize)) return 0;
+  return (long long)g.bytes();
 }
 
 extern "C" long long pano_smem_limit() { return (long long)smem_limit(); }
@@ -384,9 +483,9 @@ extern "C" int pano_relax_phase_fused(
     return (int)cudaErrorInvalidValue;
   const Planes p{fx,  fy,   bx,      by,      w1x, w1y, i0x,
                  i0y, mask, nullptr, nullptr, ofx, ofy};
-  const Scalars s{lim, smooth, step, vreg_w, hreg_w, fold, w1_bf16};
-  return dispatch<true>(p, s, pano::make_taps(taps_host, ksize), nb, h, w,
-                        iters, D, ksize, (cudaStream_t)stream);
+  const Scalars s{lim, smooth, step, vreg_w, hreg_w, fold, w1_bf16, 1, iters};
+  return dispatch(p, s, pano::make_taps(taps_host, ksize), nb, h, w, D, ksize,
+                  (cudaStream_t)stream);
 }
 
 extern "C" int pano_relax_phase_unfused(
@@ -398,7 +497,6 @@ extern "C" int pano_relax_phase_unfused(
     int w1_bf16, void* stream) {
   const Planes p{fx, fy, bx, by, w1x, w1y, i0x, i0y, mask, bfx, bfy, ofx,
                  ofy};
-  const Scalars s{lim, smooth, step, vreg_w, hreg_w, fold, w1_bf16};
-  return dispatch<false>(p, s, pano::Taps{}, nb, h, w, iters, D, 1,
-                         (cudaStream_t)stream);
+  const Scalars s{lim, smooth, step, vreg_w, hreg_w, fold, w1_bf16, 0, iters};
+  return dispatch(p, s, pano::Taps{}, nb, h, w, D, 1, (cudaStream_t)stream);
 }

@@ -6,7 +6,10 @@ named after a hash of the sources and the flags, so the first use after
 any edit rebuilds it; it goes to ``build/kernels/`` at the repository
 root (listed in ``.gitignore``).  Nothing is built when this module is
 imported: ``load()`` builds on first use, which only happens when a
-wrapper in ``ops.kernels`` receives a CUDA tensor.
+wrapper in ``ops.kernels`` receives a CUDA tensor.  ``open_library`` builds
+and binds another source directory with the same C interface (an earlier
+commit's ``csrc/``) and ``use_library`` hands it to the wrappers, for
+timing two versions of a kernel in one process.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC", "--threads", "0"]
 
 _lib = None
 build_log = ""        # nvcc's output of the last build (register/smem use)
@@ -48,9 +51,9 @@ _SIGNATURES = {
 }
 
 
-def _sources() -> list[str]:
-    return sorted(glob.glob(os.path.join(CSRC, "*.cu"))
-                  + glob.glob(os.path.join(CSRC, "*.cuh")))
+def _sources(csrc: str) -> list[str]:
+    return sorted(glob.glob(os.path.join(csrc, "*.cu"))
+                  + glob.glob(os.path.join(csrc, "*.cuh")))
 
 
 def _nvcc() -> str:
@@ -62,19 +65,19 @@ def _nvcc() -> str:
                        "are built from csrc/ on the machine with the card")
 
 
-def library_path() -> str:
+def library_path(csrc: str = CSRC) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in _sources():
+    for path in _sources(csrc):
         with open(path, "rb") as f:
             h.update(os.path.basename(path).encode() + f.read())
     return os.path.join(BUILD_DIR, f"libpano_kernels_{h.hexdigest()[:16]}.so")
 
 
-def build() -> str:
-    """Compile csrc/ into the hashed library unless it exists; returns
-    its path."""
+def build(csrc: str = CSRC) -> str:
+    """Compile the sources of ``csrc`` into the hashed library unless it
+    exists; returns its path."""
     global build_log, build_seconds
-    path = library_path()
+    path = library_path(csrc)
     if os.path.exists(path):
         build_seconds = 0.0
         return path
@@ -82,8 +85,8 @@ def build() -> str:
     t0 = time.perf_counter()
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cu = [s for s in _sources() if s.endswith(".cu")]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, *cu]
+    cu = [s for s in _sources(csrc) if s.endswith(".cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", csrc, "-o", tmp, *cu]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     build_log = proc.stdout + proc.stderr
     if proc.returncode != 0:
@@ -94,14 +97,26 @@ def build() -> str:
     return path
 
 
+def open_library(csrc: str = CSRC) -> ctypes.CDLL:
+    """Build the sources of ``csrc`` and bind their C interface."""
+    lib = ctypes.CDLL(build(csrc))
+    for name, (argtypes, restype) in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    return lib
+
+
 def load() -> ctypes.CDLL:
     """The kernel library, built on first use."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build())
-        for name, (argtypes, restype) in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = restype
-        _lib = lib
+        _lib = open_library()
     return _lib
+
+
+def use_library(lib: ctypes.CDLL) -> None:
+    """Make ``lib`` (from ``open_library``) the one ``load()`` returns, so
+    the wrappers launch its kernels."""
+    global _lib
+    _lib = lib

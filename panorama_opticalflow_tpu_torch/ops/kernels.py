@@ -86,18 +86,32 @@ def warp_tiled_plain(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
                               WARP_MAX_OFF)
 
 
-def warp_tiled(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+def warp_tile_offsets(flow: torch.Tensor) -> torch.Tensor:
+    """The warp's per-tile integer offsets of a (B, H, W, 2) flow:
+    (B, ty, tx, 2) int32, made with torch ops outside the kernel."""
+    return tile_offsets(flow, *WARP_TILE, WARP_MAX_OFF).contiguous()
+
+
+def warp_tiled(img: torch.Tensor, flow: torch.Tensor,
+               offsets: torch.Tensor | None = None) -> torch.Tensor:
     """W(x) = img(x + flow(x)), bilinear, clamp-to-edge, per-(64, 128)-tile
     integer offset + separable residual hat passes.  ``img`` (B, H, W, C)
-    and ``flow`` (B, H, W, 2) float32; returns (B, H, W, C)."""
+    and ``flow`` (B, H, W, 2) float32; returns (B, H, W, C).  ``offsets``
+    is ``warp_tile_offsets(flow)`` where the caller already holds it."""
     if img.dim() != 4 or flow.dim() != 4:
         raise ValueError("warp_tiled: img (B, H, W, C) and flow (B, H, W, 2)")
     nb, h, w, c = img.shape
     dev = _check("warp_tiled", {"img": img, "flow": flow},
                  {"img": (nb, h, w, c), "flow": (nb, h, w, 2)})
+    tiles = (nb, -(-h // WARP_TILE[0]), -(-w // WARP_TILE[1]), 2)
+    if offsets is not None and (
+            offsets.dtype != torch.int32 or tuple(offsets.shape) != tiles
+            or offsets.device != dev or not offsets.is_contiguous()):
+        raise ValueError(f"warp_tiled: offsets must be contiguous int32 "
+                         f"{tiles} on {dev}")
     if dev.type == "cpu":
         return warp_tiled_plain(img, flow)
-    off = tile_offsets(flow, *WARP_TILE, WARP_MAX_OFF).contiguous()
+    off = warp_tile_offsets(flow) if offsets is None else offsets
     out = torch.empty_like(img)
     _launch("warp_tiled", "pano_warp_tiled", img.data_ptr(), flow.data_ptr(),
             off.data_ptr(), out.data_ptr(), nb, c, h, w, *WARP_TILE,
@@ -342,7 +356,8 @@ def _relax_check(name: str, planes: dict, iters: int,
 def _relax_smem_check(name: str, params: FlowParams, iters: int, D: int,
                       fuse_bf: bool) -> None:
     """Raise when the kernel refuses the geometry: a block's halo window
-    grows with ``iters`` and must fit the card's shared memory."""
+    grows with ``iters`` and ``D``, and must fit the card's shared memory
+    with at least 24 tile rows."""
     from panorama_opticalflow_tpu_torch.ops import build
 
     lib = build.load()
@@ -357,6 +372,9 @@ def _relax_smem_check(name: str, params: FlowParams, iters: int, D: int,
         raise ValueError(f"{name}: iters={iters}, D={D} needs {need} bytes "
                          f"of shared memory per block, the card allows "
                          f"{limit}")
+    if need < 0:
+        raise ValueError(f"{name}: no kernel is built for iters={iters} "
+                         f"(at most 7)")
 
 
 def _relax_scalars(params: FlowParams, w: int, D: int) -> tuple:

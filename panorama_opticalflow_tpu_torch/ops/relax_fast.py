@@ -49,7 +49,15 @@ def tile_offsets(flow: torch.Tensor, tile_h: int, tile_w: int,
     nb, h, w, _ = flow.shape
     hp = -(-h // tile_h) * tile_h
     wp = -(-w // tile_w) * tile_w
-    flow_p = pad_axis(pad_axis(flow, 1, 0, hp - h, "edge"), 2, 0, wp - w, "edge")
+    # edge padding at the far end only: the last row and column repeated
+    # (one copy, and no index tensor to send to the device)
+    flow_p = flow
+    if hp > h:
+        flow_p = torch.cat([flow_p, flow_p[:, -1:].expand(-1, hp - h, -1, -1)],
+                           dim=1)
+    if wp > w:
+        flow_p = torch.cat([flow_p, flow_p[:, :, -1:].expand(-1, -1, wp - w,
+                                                             -1)], dim=2)
     mean = flow_p.reshape(nb, hp // tile_h, tile_h, wp // tile_w, tile_w,
                           2).mean(dim=(2, 4))
     return torch.clamp(torch.round(mean), -max_off, max_off).to(torch.int32)

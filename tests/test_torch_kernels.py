@@ -20,6 +20,11 @@ The Pallas kernel itself is checked tile-size invariant (config.py's
 claim): two tile sizes give bit-identical output, and the port's plain
 version -- the whole plane as one window -- matches both.
 
+The warp and relax kernels on the card gather the two non-zero taps of
+each hat pass where the plain versions sum the dense window.  The two
+forms are bit-identical (every other tap's weight is an exact zero); the
+two-tap references at the end of this file hold that on the CPU.
+
 The kernel-vs-plain checks on the card are in tests/test_torch_card.py,
 which imports no JAX.
 """
@@ -36,6 +41,7 @@ from panorama_opticalflow_tpu.ops.pallas import kernels as jk
 from panorama_opticalflow_tpu.utils.config import flow_params_by_name
 from panorama_opticalflow_tpu_torch import to_numpy, to_torch
 from panorama_opticalflow_tpu_torch.ops import kernels as tk
+from panorama_opticalflow_tpu_torch.ops import relax_fast as trf
 
 torch.set_num_threads(2)
 
@@ -197,6 +203,10 @@ def test_wrappers_take_plain_version_on_cpu(rng):
     flow = T(np.stack([_smooth_flow(70, 150)] * 2) * 0.1)
     assert torch.equal(tk.warp_tiled(img, flow), tk.warp_tiled_plain(img,
                                                                       flow))
+    off = tk.warp_tile_offsets(flow)
+    assert off.dtype == torch.int32 and tuple(off.shape) == (2, 2, 2, 2)
+    assert torch.equal(tk.warp_tiled(img, flow, off),
+                       tk.warp_tiled_plain(img, flow))
     x = T(rng.standard_normal((4, 40, 70)).astype(np.float32))
     c = T(rng.random((2, 40, 70)).astype(np.float32))
     assert torch.equal(tk.median5_diffuse(x, c),
@@ -226,6 +236,12 @@ def test_wrappers_reject_what_the_kernels_do_not_take(rng):
         tk.median5_diffuse(x.transpose(1, 2).contiguous().transpose(1, 2), c)
     with pytest.raises(ValueError):
         tk.warp_tiled(x, x)
+    img = T(rng.standard_normal((1, 70, 150, 2)).astype(np.float32))
+    off = tk.warp_tile_offsets(img)
+    with pytest.raises(ValueError, match="offsets"):
+        tk.warp_tiled(img, img, off[:, :1].contiguous())
+    with pytest.raises(ValueError, match="offsets"):
+        tk.warp_tiled(img, img, off.float())
     planes = [T(p) for p in _relax_inputs(rng, 1, 20, 30)]
     with pytest.raises(ValueError):
         tk.relax_phase(*planes, params, 3, 4)
@@ -245,3 +261,127 @@ def test_wrappers_reject_what_the_kernels_do_not_take(rng):
                                params, 3, 2)
     with pytest.raises(TypeError):        # the 9 planes of the fused kernel
         tk.relax_phase_unfused(*planes[:8], planes[10], params, 3, 2)
+
+
+# ---------------------------------------------------------------------------
+# the two-tap gather form of the hat passes (what the CUDA kernels compute)
+# ---------------------------------------------------------------------------
+
+# residuals that sit on the clamp, on exact integers, just below an integer
+# (r - floor(r) rounds to 1.0), at +-0 and at negative fractions
+_SPECIAL = np.array([0.0, -0.0, 1.0, -1.0, 2.0, -2.0, 3.0, -3.0, 7.0, -7.0,
+                     -1e-10, 1e-10, -1.0 - 1e-7, 0.5, -0.5, -1.25, 1.999,
+                     -1.999, 2.999, -2.999, 7.999, -7.999, 8.5, -8.5, 30.0,
+                     -30.0], np.float32)
+
+
+def _two_taps(r, weight_fn):
+    """floor(r) and the weights of taps floor(r), floor(r) + 1."""
+    t0 = torch.floor(r)
+    return t0.to(torch.int64), weight_fn(r - t0), weight_fn(r - (t0 + 1.0))
+
+
+def _two_tap_sum(w0, v0, w1, v1):
+    """0 + w0*v0 + w1*v1, each op rounded, in the dense sum's order."""
+    return (torch.zeros_like(v0) + w0 * v0) + w1 * v1
+
+
+def _warp_two_tap(img, flow):
+    """tk.warp_tiled_plain with four reads an output: the two y taps, and
+    at each of those window rows that row's own clamped x residual with its
+    two x taps.  x sums first, taps ascending."""
+    th, tw = tk.WARP_TILE
+    m, lim = tk.WARP_MARGIN, tk.WARP_MARGIN - 1e-3
+    nb, h, w, _ = img.shape
+    off = trf.tile_offsets(flow, th, tw, tk.WARP_MAX_OFF).to(torch.int64)
+    y = torch.arange(h)[:, None].expand(h, w)
+    x = torch.arange(w)[None, :].expand(h, w)
+    out = torch.empty_like(img)
+    for b in range(nb):
+        ox = off[b, y // th, x // tw, 0]
+        oy = off[b, y // th, x // tw, 1]
+        ry = torch.clamp(flow[b, ..., 1] - oy.to(torch.float32), -lim, lim)
+        jy, wy0, wy1 = _two_taps(ry, trf._hat)
+        xs = []
+        for t in (jy, jy + 1):
+            # the residual of the window row: rows of the tile, edge-extended
+            yq = torch.clamp(y % th + t, 0, th - 1)
+            gy = torch.clamp(y // th * th + yq, max=h - 1)
+            rx = torch.clamp(flow[b, gy, x, 0] - ox.to(torch.float32),
+                             -lim, lim)
+            ix, wx0, wx1 = _two_taps(rx, trf._hat)
+            assert int(ix.min()) >= -m and int(ix.max()) + 1 <= m
+            sy = torch.clamp(y + t + oy, 0, h - 1)
+            v0 = img[b, sy, torch.clamp(x + ox + ix, 0, w - 1)]
+            v1 = img[b, sy, torch.clamp(x + ox + ix + 1, 0, w - 1)]
+            xs.append(_two_tap_sum(wx0[..., None], v0, wx1[..., None], v1))
+        out[b] = _two_tap_sum(wy0[..., None], xs[0], wy1[..., None], xs[1])
+    return out
+
+
+@pytest.mark.parametrize("h,w,seed", [(70, 150, 0), (130, 261, 1)])
+def test_warp_two_tap_form_equals_plain(h, w, seed):
+    rng = np.random.default_rng(seed)
+    img = T(rng.standard_normal((2, h, w, 2)).astype(np.float32))
+    flow = np.stack([_smooth_flow(h, w), -_smooth_flow(h, w)]) \
+        + rng.standard_normal((2, h, w, 2)).astype(np.float32) * 0.4
+    # a third of the pixels: an integer offset plus a special residual
+    pick = rng.random((2, h, w, 2)) < 0.33
+    special = rng.integers(-40, 40, (2, h, w, 2)).astype(np.float32) \
+        + rng.choice(_SPECIAL, (2, h, w, 2))
+    flow = T(np.where(pick, special, flow).astype(np.float32))
+    assert torch.equal(_warp_two_tap(img, flow), tk.warp_tiled_plain(img, flow))
+
+
+def _sample_maps_two_tap(w1_pad, dx, dy, D):
+    """trf.sample_maps (S, the four neighbour maps, Gx, Gy) with two taps a
+    pass; the x pass yields the hat and the dhat sums from one read."""
+    h, w = dx.shape[-2:]
+    r, lim = D + 1, D - 1e-3
+    dx_ext = trf._pad2(torch.clamp(dx, -lim, lim), r, r, 1, 1)[:, None]
+    dyc = torch.clamp(dy, -lim, lim)[:, None]
+    xr, xw = h + 2 * r, w + 2
+    ix, *_ = _two_taps(dx_ext, trf._hat)
+    assert int(ix.min()) >= -D and int(ix.max()) + 1 <= D
+    cols = (torch.arange(xw) + D)[None, None, None, :] + ix
+    rows = w1_pad[..., :xr, :]
+    v0 = torch.gather(rows, -1, cols.expand(rows.shape[:2] + (xr, xw)))
+    v1 = torch.gather(rows, -1, (cols + 1).expand(rows.shape[:2] + (xr, xw)))
+    x_hat, x_dhat = (_two_tap_sum(w0, v0, w1, v1) for _, w0, w1 in
+                     (_two_taps(dx_ext, f) for f in (trf._hat, trf._dhat)))
+
+    def y_pass(x_acc, weight_fn, ro, co):
+        jy, w0, w1 = _two_taps(dyc, weight_fn)
+        idx = (torch.arange(h)[:, None] + r + ro + jy).expand(
+            x_acc.shape[:2] + (h, w))
+        cut = x_acc[..., 1 + co:1 + co + w]
+        return _two_tap_sum(w0, torch.gather(cut, -2, idx),
+                            w1, torch.gather(cut, -2, idx + 1))
+
+    nbrs = {"xp": y_pass(x_hat, trf._hat, 0, 1),
+            "xm": y_pass(x_hat, trf._hat, 0, -1),
+            "yp": y_pass(x_hat, trf._hat, 1, 0),
+            "ym": y_pass(x_hat, trf._hat, -1, 0)}
+    return (y_pass(x_hat, trf._hat, 0, 0), nbrs,
+            y_pass(x_dhat, trf._hat, 0, 0), y_pass(x_hat, trf._dhat, 0, 0))
+
+
+@pytest.mark.parametrize("D", [1, 2, 3])
+def test_sample_maps_two_tap_form_equals_dense(D):
+    rng = np.random.default_rng(D)
+    b, h, w = 2, 37, 61
+    w1 = T(rng.standard_normal((b, 2, h, w)).astype(np.float32))
+    w1 = w1.to(torch.bfloat16).to(torch.float32)
+    w1_pad = trf._pad2(w1, D + 1, D + 1, D + 1, D + 1)
+    d = []
+    for _ in range(2):
+        a = rng.standard_normal((b, h, w)).astype(np.float32)
+        pick = rng.random((b, h, w)) < 0.4
+        d.append(T(np.where(pick, rng.choice(_SPECIAL, (b, h, w)), a)))
+    S, nbrs, Gx, Gy = _sample_maps_two_tap(w1_pad, d[0], d[1], D)
+    S0, nbrs0, Gx0, Gy0 = trf.sample_maps(w1_pad, d[0], d[1], D, True, True)
+    assert torch.equal(S, S0)
+    for key in ("xp", "xm", "yp", "ym"):
+        assert torch.equal(nbrs[key], nbrs0[key]), key
+    assert torch.equal(Gx, Gx0)
+    assert torch.equal(Gy, Gy0)

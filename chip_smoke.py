@@ -8,9 +8,10 @@ csrc/, then runs seven phases and prints one JSON object per phase line:
 
   A  the card (nvidia-smi name and power limit) and the kernel build;
   B  each of the five kernels against its plain PyTorch version on the
-     card, at the 9000x4000 headline's finest-level shapes and at a ragged
-     small shape, with kernel and plain median times (CUDA events), the
-     kernel's bound (bytes at the memory rate or operations at the float32
+     card, at the 9000x4000 headline's finest-level shapes, at a middle
+     level of its pyramid and at a ragged small shape, with kernel and
+     plain median times (CUDA events; the kernel table keeps the finest
+     level's), the kernel's bound (bytes at the memory rate or operations at the float32
      peak, whichever is longer) and, for the warp, the time of
      F.grid_sample on the same inputs; the unfused relax at 2 and 3
      iterations;
@@ -73,9 +74,11 @@ EPE_MEAN_TOL = 0.05
 # 0.9997+ for both knobs)
 SCHEDULE_SSIM_MIN = 0.995
 HEADLINE = (4000, 9000)
-# phase B: a ragged shape, then the finest level of a 4000 x 3584 pair
-# window
-B_SHAPES = (("ragged", (2, 45, 203)), ("headline", (2, 2000, 1792)))
+# phase B: a ragged shape, then a middle level and the finest level of a
+# 4000 x 3584 pair window's pixflow_low_fast pyramid; the last two are timed
+B_SHAPES = (("ragged", (2, 45, 203)), ("mid", (2, 655, 587)),
+            ("headline", (2, 2000, 1792)))
+B_TIMED = ("mid", "headline")
 # crop.plan_chain_windows of the seed-0 headline set: (roll, width,
 # gather_safe) per pair
 HEADLINE_WINDOWS = [(8100, 3584, False), (900, 3584, True),
@@ -156,8 +159,9 @@ def phase_a(smi: str) -> None:
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 # Operations a pixel of the least-work form of each kernel (two taps a hat
-# pass, a 99-exchange selection of the median of 25), one for every
-# multiply, add, compare, min/max, floor, sqrt and divide:
+# pass, a median selection that shares its work between neighbouring
+# windows), one for every multiply, add, compare, min/max, floor, sqrt and
+# divide:
 #   warp, two channels: the y residual and its two hat weights 12, at each
 #     of two rows the x residual and its weights 12, a channel two x sums
 #     and a y sum of (2 mul + 1 add) 9;
@@ -166,11 +170,17 @@ FP32_OPS_PER_S = 67e12
 #     x pass B 30 (hat and dhat sums); descent 75;
 #   the fused relax adds the 15 x 15 separable blur of two planes, 2 x 2 x
 #     15 x 2;
-#   median of 25 by exchanges: 99 x (min + max); the diffusion adds two
-#     15-tap passes and the blend.
+#   median of 25 by the exchange networks of csrc/median25_net.inc, in a
+#     long run of adjacent outputs: a pixel sorts one window column (9
+#     exchanges, min + max each: 18), merges half a pair of sorted columns
+#     (13 exchanges a pair: 13) and selects from two merged pairs and a
+#     column (30 exchanges, of whose 60 results the network reads 36).  A
+#     window alone would take 101 exchanges; the kernels own runs of 8, at
+#     82.5 min/max a pixel.  The diffusion adds two 15-tap passes and the
+#     blend.
 WARP_OPS = 12 + 2 * 12 + 2 * 9
 RELAX_OPS_PER_ITER = 18 + (5 * 36 + 3) + 30 + 75
-MEDIAN_OPS = 99 * 2
+MEDIAN_OPS = 2 * 9 + 13 + 36
 
 
 def bound(nbytes: int, ops: int) -> dict:
@@ -299,9 +309,10 @@ def as_tensor(out):
 
 
 def phase_b(dev) -> dict:
-    """Each kernel against its plain version at a ragged shape and at the
-    headline finest-level shapes; returns {kernel: {max_abs_err, ms,
-    plain_ms, library_ms, bound_ms, bound_by, ...}}."""
+    """Each kernel against its plain version at a ragged shape, a middle
+    level and the headline finest-level shapes; returns {kernel:
+    {max_abs_err, ms, plain_ms, library_ms, bound_ms, bound_by, ...}} with
+    the finest level's times."""
     import numpy as np
     import torch
 
@@ -328,7 +339,7 @@ def phase_b(dev) -> dict:
                 ok = share < case["max_share"]
             else:
                 ok = err <= case["tol"]
-            if tag == "headline" and not case.get("check_only"):
+            if tag in B_TIMED and not case.get("check_only"):
                 timed = {"ms": cuda_ms(case["kernel"], 20),
                          "plain_ms": cuda_ms(case["plain"], 5),
                          "library_ms": None,
@@ -342,7 +353,8 @@ def phase_b(dev) -> dict:
                     timed["glue_ms"] = cuda_ms(case["glue"], 20)
                     timed["launch_ms"] = cuda_ms(case["launch"], 20)
                 rec.update(timed)
-                results[name].update(timed)
+                if tag == "headline":   # the kernel table's shape
+                    results[name].update(timed)
             results[name]["max_abs_err"] = max(err,
                                                results[name]["max_abs_err"])
             emit(rec)

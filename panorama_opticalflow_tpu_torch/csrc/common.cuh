@@ -6,6 +6,7 @@
 // a kernel agree with its plain version to the last bit on most pixels.
 #pragma once
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 namespace pano {
@@ -51,42 +52,115 @@ __device__ __forceinline__ void cswap(float& a, float& b) {
   b = hi;
 }
 
-// 13th smallest of v[0..24] (the 5x5 median): a fully unrolled 32-way
-// bitonic sort in registers, v[25..31] padded with +inf by the caller.
-// Any correct selection network gives the exact median.
-__device__ __forceinline__ float median25(float (&v)[32]) {
+// The 5x5 median (13th smallest of 25) by exchanges on registers.  The
+// TPU kernel sorts all 25 values with a 32-way network because it sorts
+// whole planes at once; a thread here needs only the median, and
+// neighbouring windows hold the same columns.  So a thread owns MEDIAN_RUN
+// horizontally adjacent outputs and shares the work between their
+// windows: it sorts each of the MEDIAN_RUN + 4 columns once, merges each
+// aligned pair of adjacent columns once into a sorted ten, and selects each
+// median from the two merged pairs and the one single column that make up
+// its window.  The three networks are in median25_net.inc.  Any exact
+// selection returns the same bits: a median only picks one of its inputs.
+// Every index is static after unrolling, so the values stay in registers,
+// and the compiler drops the half of an exchange whose result is not read.
+// What bounds it: min and max run at half the rate of a float32 add on
+// this card, and nothing fuses them.
+constexpr int MEDIAN_RUN = 8;
+
+__device__ __forceinline__ void sort_column(float (&v)[5]) {
+#define PANO_COLSWAP(i, j) cswap(v[i], v[j]);
+#include "median25_net.inc"
+}
+
+// two sorted columns into one ascending run of ten
+__device__ __forceinline__ void merge_pair(const float (&a)[5],
+                                           const float (&b)[5],
+                                           float (&v)[10]) {
 #pragma unroll
-  for (int k = 1; k < 32; k <<= 1) {
+  for (int r = 0; r < 5; ++r) v[r] = a[r], v[5 + r] = b[r];
+#define PANO_PAIRSWAP(i, j) cswap(v[i], v[j]);
+#include "median25_net.inc"
+}
+
+// median of the window made of two merged pairs and one sorted column
+__device__ __forceinline__ float median_of_parts(const float (&p)[10],
+                                                 const float (&q)[10],
+                                                 const float (&c)[5]) {
+  float v[25], m;
 #pragma unroll
-    for (int j = k; j >= 1; j >>= 1) {
+  for (int r = 0; r < 10; ++r) v[r] = p[r], v[10 + r] = q[r];
 #pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        const int ixj = i ^ j;
-        if (ixj > i) {
-          if ((i & (k << 1)) == 0)
-            cswap(v[i], v[ixj]);
-          else
-            cswap(v[ixj], v[i]);
-        }
-      }
+  for (int r = 0; r < 5; ++r) v[20 + r] = c[r];
+#define PANO_CSWAP(i, j) cswap(v[i], v[j]);
+#define PANO_MEDIAN_AT(w) m = v[w];
+#include "median25_net.inc"
+  return m;
+}
+
+// Medians of the MEDIAN_RUN horizontally adjacent 5x5 windows whose first
+// top-left corner is at src (shared memory, 16-byte aligned, row stride ld
+// a multiple of 4), to out[0 .. MEDIAN_RUN): 16-byte loads bring the
+// 5 x (MEDIAN_RUN + 4) values.  Window m spans columns m .. m + 4; the
+// pairs are columns (0, 1), (2, 3), ...: an even window is two pairs and
+// its last column, an odd one its first column and two pairs.
+__device__ __forceinline__ void median5_run(const float* src, int ld,
+                                            float (&out)[MEDIAN_RUN]) {
+  constexpr int NC = MEDIAN_RUN + 4;
+  static_assert(MEDIAN_RUN % 4 == 0, "whole float4 loads, whole pairs");
+  float cols[NC][5];
+#pragma unroll
+  for (int r = 0; r < 5; ++r)
+#pragma unroll
+    for (int c = 0; c < NC; c += 4) {
+      const float4 a = *reinterpret_cast<const float4*>(src + r * ld + c);
+      cols[c][r] = a.x, cols[c + 1][r] = a.y, cols[c + 2][r] = a.z,
+      cols[c + 3][r] = a.w;
     }
+#pragma unroll
+  for (int c = 0; c < NC; ++c) sort_column(cols[c]);
+  float pairs[NC / 2][10];
+#pragma unroll
+  for (int k = 0; k < NC / 2; ++k)
+    merge_pair(cols[2 * k], cols[2 * k + 1], pairs[k]);
+#pragma unroll
+  for (int m = 0; m < MEDIAN_RUN; ++m) {
+    const int k = (m + 1) / 2;  // the window's first whole pair
+    out[m] = median_of_parts(pairs[k], pairs[k + 1],
+                             cols[m % 2 ? m : m + 4]);
   }
-  return v[12];
 }
 
-// median of the 5x5 window whose top-left corner is at src (row stride ld)
-__device__ __forceinline__ float median5x5(const float* src, int ld) {
-  float v[32];
-#pragma unroll
-  for (int dy = 0; dy < 5; ++dy)
-#pragma unroll
-    for (int dx = 0; dx < 5; ++dx) v[dy * 5 + dx] = src[dy * ld + dx];
-#pragma unroll
-  for (int t = 25; t < 32; ++t) v[t] = __int_as_float(0x7f800000);
-  return median25(v);
+// Starts the copy of rows x COLS values of the plane src (h x w) into
+// shared memory (row stride COLS), from the window whose corner is at
+// (y_first, x_first): the edge-replicated input, indices clamped to the
+// plane where the window reaches beyond it.  The copies are asynchronous
+// (no register in between), so a thread has all of its loads in flight at
+// once; lanes run along a row.  The caller commits (__pipeline_commit),
+// waits (__pipeline_wait_prior) and synchronises.
+template <int COLS>
+__device__ __forceinline__ void stage_clamped_async(float* dst,
+                                                    const float* src, int h,
+                                                    int w, int y_first,
+                                                    int x_first, int rows) {
+  const int n = rows * COLS;
+  if (y_first >= 0 && y_first + rows <= h && x_first >= 0 &&
+      x_first + COLS <= w) {  // a window inside the plane: nothing to clamp
+    const float* corner = src + (size_t)y_first * w + x_first;
+    for (int k = threadIdx.x; k < n; k += blockDim.x)
+      __pipeline_memcpy_async(dst + k, corner + (k / COLS) * w + k % COLS,
+                              sizeof(float));
+    return;
+  }
+  for (int k = threadIdx.x; k < n; k += blockDim.x) {
+    const int yy = clampi(y_first + k / COLS, 0, h - 1);
+    const int xx = clampi(x_first + k % COLS, 0, w - 1);
+    __pipeline_memcpy_async(dst + k, src + (size_t)yy * w + xx, sizeof(float));
+  }
 }
 
-// 1-D Gaussian taps passed by value (kernel parameter space)
+// 1-D Gaussian taps passed by value (kernel parameter space); a loop
+// unrolled over a static tap count reads them as constant operands
 struct Taps {
   float v[32];
   int n;

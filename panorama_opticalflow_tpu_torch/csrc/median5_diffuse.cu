@@ -13,95 +13,190 @@
 // blur sees medians of clamped windows, as in the reference kernel), then
 // blurred separably, x first, taps in order.
 //
-// Bound on the H100: arithmetic, not bytes.  Each output reads one input
-// value and one coefficient and writes one value (12 bytes), but the
-// median costs a 32-input sorting network (240 compare-exchanges) on
-// (32 + 14) x (64 + 14) positions per 32 x 64 tile.  Design: one block per
-// (tile, plane); the input window and the median field live in shared
-// memory (31 KB, so several blocks share an SM), each thread sorts one
-// window in registers (a fully unrolled bitonic network; any correct
-// selection network gives the exact median), and the blur runs from
-// shared memory with the x pass reusing the input window's storage.
+// Bound on the H100: arithmetic, not bytes.  An output reads one input
+// value and one coefficient and writes one value (12 bytes), but its
+// median takes about a hundred exchanges (a min and a max each, nothing
+// fuses) and the median field is also needed on the blur margin around a
+// tile.  (The Pallas kernel sorts all 25 values with a 32-way network, 240
+// exchanges, because the TPU sorts whole planes; that is not carried over.)
+// Design: one block per (64, 128) output tile and plane, so the margin's
+// medians cost 1.35x the tile's (a (32, 64) tile: 1.75x).  The input
+// window is staged into shared memory by asynchronous copies, so a thread
+// has all its loads in flight at once; window and median field take 93 KB
+// at 15 taps, and the two blocks that share a multiprocessor cover each
+// other's wait.  A thread owns runs of adjacent positions in each of the
+// three passes: the medians in runs of eight that share sorted columns and
+// merged column pairs (pano::median5_run in common.cuh, the networks of
+// median25_net.inc: 53 exchanges a median where a window alone takes
+// 101), the x blur reads its 4 + 14 medians with 16-byte loads, the y blur
+// and the blend write 16 bytes.  The tap count is a template parameter, so
+// both blurs unroll and read the taps as constant operands; the sums keep
+// the plain version's order (x first, taps ascending, every product and
+// sum rounded alone).  The x pass reuses the input window's storage.  A
+// tile at the plane's lower or right edge computes only the rows and runs
+// it needs.
+#include <cstdint>
+
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int MTH = 32;
-constexpr int MTW = 64;
+constexpr int MTH = 64;
+constexpr int MTW = 128;
 constexpr int THREADS = 256;
+constexpr int BLOCKS_PER_SM = 2;         // by shared memory
+constexpr int MRUN = pano::MEDIAN_RUN;  // medians a thread and step
+constexpr int RUN = 4;                   // blur outputs a thread and step
 
-__global__ void __launch_bounds__(THREADS)
+constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
+
+// shared-memory geometry for a blur of KS taps (radius KS / 2)
+template <int KS>
+struct Geo {
+  static constexpr int GR = KS / 2;
+  static constexpr int MH = MTH + 2 * GR;            // median field rows
+  static constexpr int MLD = round_up(MTW + 2 * GR, MRUN);  // its row stride
+  static constexpr int XH = MH + 4, XLD = MLD + 4;   // input window
+  static constexpr int LOADS = (RUN + 2 * GR + 3) / 4;  // float4 an x-blur run
+  static constexpr size_t SMEM =
+      (size_t)(XH * XLD + MH * MLD) * sizeof(float);
+  static_assert(MH * MTW <= XH * XLD, "the x pass fits the input window");
+};
+
+// VEC: every row of the planes starts on a 16-byte boundary
+template <int KS, bool VEC>
+__global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
 median5_diffuse_kernel(const float* __restrict__ x, const float* __restrict__ cf,
                        float* __restrict__ out, int h, int w, pano::Taps taps) {
-  extern __shared__ float smem[];
-  const int gr = taps.n / 2;
-  const int xh = MTH + 2 * gr + 4, xw = MTW + 2 * gr + 4;  // input window
-  const int mh = MTH + 2 * gr, mw = MTW + 2 * gr;          // median field
-  float* xs = smem;             // xh x xw, later the mh x MTW x-pass
-  float* med = smem + xh * xw;  // mh x mw
+  using G = Geo<KS>;
+  constexpr int GR = G::GR;
+  extern __shared__ float4 smem4[];
+  float* xs = reinterpret_cast<float*>(smem4);  // XH x XLD, later MH x MTW
+  float* med = xs + G::XH * G::XLD;             // MH x MLD
 
   const int x0 = blockIdx.x * MTW, y0 = blockIdx.y * MTH;
   const int p = blockIdx.z;
-  const float* src = x + (size_t)p * h * w;
+  const size_t hw = (size_t)h * w;
+  const int th = min(MTH, h - y0), tw = min(MTW, w - x0);
+  const int mh = th + 2 * GR;                          // median rows needed
+  const int mruns = (tw + 2 * GR + MRUN - 1) / MRUN;  // median runs a row
+  const int oruns = (tw + RUN - 1) / RUN;              // output runs a row
 
-  for (int k = threadIdx.x; k < xh * xw; k += blockDim.x) {
-    const int yy = pano::clampi(y0 - gr - 2 + k / xw, 0, h - 1);
-    const int xx = pano::clampi(x0 - gr - 2 + k % xw, 0, w - 1);
-    xs[k] = src[(size_t)yy * w + xx];
+  pano::stage_clamped_async<G::XLD>(xs, x + p * hw, h, w, y0 - GR - 2,
+                                    x0 - GR - 2, mh + 4);
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+
+  for (int k = threadIdx.x; k < mh * mruns; k += blockDim.x) {
+    const int r = k / mruns, q = (k - r * mruns) * MRUN;
+    float m[MRUN];
+    pano::median5_run(xs + r * G::XLD + q, G::XLD, m);
+#pragma unroll
+    for (int i = 0; i < MRUN; i += 4)
+      *reinterpret_cast<float4*>(med + r * G::MLD + q + i) =
+          make_float4(m[i], m[i + 1], m[i + 2], m[i + 3]);
   }
   __syncthreads();
 
-  for (int k = threadIdx.x; k < mh * mw; k += blockDim.x) {
-    const int r = k / mw, q = k % mw;
-    med[k] = pano::median5x5(xs + r * xw + q, xw);
+  // x pass: accx[r][q + m] = sum_t taps[t] * med[r][q + m + t]; the
+  // columns beyond the medians computed above feed no output
+  float* accx = xs;  // MH x MTW
+  for (int k = threadIdx.x; k < mh * oruns; k += blockDim.x) {
+    const int r = k / oruns, q = (k - r * oruns) * RUN;
+    float v[4 * G::LOADS];
+#pragma unroll
+    for (int i = 0; i < G::LOADS; ++i) {
+      const float4 a =
+          *reinterpret_cast<const float4*>(med + r * G::MLD + q + 4 * i);
+      v[4 * i] = a.x, v[4 * i + 1] = a.y, v[4 * i + 2] = a.z,
+            v[4 * i + 3] = a.w;
+    }
+    float acc[RUN];
+#pragma unroll
+    for (int m = 0; m < RUN; ++m) {
+      acc[m] = 0.f;
+#pragma unroll
+      for (int i = 0; i < KS; ++i) acc[m] = acc[m] + taps.v[i] * v[m + i];
+    }
+    *reinterpret_cast<float4*>(accx + r * MTW + q) =
+        make_float4(acc[0], acc[1], acc[2], acc[3]);
   }
   __syncthreads();
 
-  float* accx = xs;  // mh x MTW
-  for (int k = threadIdx.x; k < mh * MTW; k += blockDim.x) {
-    const int r = k / MTW, q = k % MTW;
-    const float* row = med + r * mw + q;
-    float acc = 0.f;
-    for (int t = 0; t < taps.n; ++t) acc = acc + taps.v[t] * row[t];
-    accx[k] = acc;
+  const float* coef = cf + (size_t)(p / 2) * hw;
+  float* dst = out + (size_t)p * hw;
+  for (int k = threadIdx.x; k < th * oruns; k += blockDim.x) {
+    const int yq = k / oruns, q = (k - yq * oruns) * RUN;
+    float blur[RUN] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < KS; ++i) {
+      const float4 a =
+          *reinterpret_cast<const float4*>(accx + (yq + i) * MTW + q);
+      blur[0] = blur[0] + taps.v[i] * a.x;
+      blur[1] = blur[1] + taps.v[i] * a.y;
+      blur[2] = blur[2] + taps.v[i] * a.z;
+      blur[3] = blur[3] + taps.v[i] * a.w;
+    }
+    const float* mc = med + (yq + GR) * G::MLD + q + GR;
+    const size_t at = (size_t)(y0 + yq) * w + x0 + q;
+    if (VEC) {
+      const float4 cv = *reinterpret_cast<const float4*>(coef + at);
+      *reinterpret_cast<float4*>(dst + at) =
+          make_float4(cv.x * blur[0] + (1.f - cv.x) * mc[0],
+                      cv.y * blur[1] + (1.f - cv.y) * mc[1],
+                      cv.z * blur[2] + (1.f - cv.z) * mc[2],
+                      cv.w * blur[3] + (1.f - cv.w) * mc[3]);
+    } else {
+#pragma unroll
+      for (int m = 0; m < RUN; ++m) {
+        if (x0 + q + m >= w) break;
+        const float cv = coef[at + m];
+        dst[at + m] = cv * blur[m] + (1.f - cv) * mc[m];
+      }
+    }
   }
-  __syncthreads();
+}
 
-  const float* coef = cf + (size_t)(p / 2) * h * w;
-  float* dst = out + (size_t)p * h * w;
-  for (int k = threadIdx.x; k < MTH * MTW; k += blockDim.x) {
-    const int yq = k / MTW, xq = k % MTW;
-    const int y = y0 + yq, xx = x0 + xq;
-    if (y >= h || xx >= w) continue;
-    const float* col = accx + yq * MTW + xq;
-    float blur = 0.f;
-    for (int t = 0; t < taps.n; ++t) blur = blur + taps.v[t] * col[t * MTW];
-    const float m = med[(yq + gr) * mw + xq + gr];
-    const float cv = coef[(size_t)y * w + xx];
-    dst[(size_t)y * w + xx] = cv * blur + (1.f - cv) * m;
-  }
+template <int KS>
+int launch(const float* x, const float* c, float* out, int planes, int h,
+           int w, const pano::Taps& taps, bool vec, cudaStream_t stream) {
+  auto kernel = vec ? median5_diffuse_kernel<KS, true>
+                    : median5_diffuse_kernel<KS, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)Geo<KS>::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((w + MTW - 1) / MTW, (h + MTH - 1) / MTH, planes);
+  kernel<<<grid, THREADS, Geo<KS>::SMEM, stream>>>(x, c, out, h, w, taps);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// Kernels are built for the odd tap counts 3 to 15 (15 is the width of
+// every preset); any other ksize is refused.
 extern "C" int pano_median5_diffuse(const float* x, const float* c, float* out,
                                     int planes, int h, int w,
                                     const float* taps_host, int ksize,
                                     void* stream) {
-  if (ksize < 1 || ksize > 31 || ksize % 2 == 0 || planes % 2 != 0)
+  if (planes < 2 || planes % 2 != 0 || h < 1 || w < 1)
     return (int)cudaErrorInvalidValue;
-  const int gr = ksize / 2;
-  const size_t smem = (size_t)((MTH + 2 * gr + 4) * (MTW + 2 * gr + 4) +
-                               (MTH + 2 * gr) * (MTW + 2 * gr)) *
-                      sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      median5_diffuse_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((w + MTW - 1) / MTW, (h + MTH - 1) / MTH, planes);
-  median5_diffuse_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      x, c, out, h, w, pano::make_taps(taps_host, ksize));
-  return (int)cudaGetLastError();
+  const pano::Taps taps = pano::make_taps(taps_host, ksize);
+  const bool vec = w % 4 == 0 && reinterpret_cast<uintptr_t>(c) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (ksize) {
+    case 3: return launch<3>(x, c, out, planes, h, w, taps, vec, s);
+    case 5: return launch<5>(x, c, out, planes, h, w, taps, vec, s);
+    case 7: return launch<7>(x, c, out, planes, h, w, taps, vec, s);
+    case 9: return launch<9>(x, c, out, planes, h, w, taps, vec, s);
+    case 11: return launch<11>(x, c, out, planes, h, w, taps, vec, s);
+    case 13: return launch<13>(x, c, out, planes, h, w, taps, vec, s);
+    case 15: return launch<15>(x, c, out, planes, h, w, taps, vec, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

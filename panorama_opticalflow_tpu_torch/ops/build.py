@@ -1,4 +1,5 @@
-"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``, with the
+headers ``*.cuh`` and ``*.inc`` they include).
 
 The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared
 library with a plain C interface, loaded with ``ctypes``.  The library is
@@ -52,8 +53,8 @@ _SIGNATURES = {
 
 
 def _sources(csrc: str) -> list[str]:
-    return sorted(glob.glob(os.path.join(csrc, "*.cu"))
-                  + glob.glob(os.path.join(csrc, "*.cuh")))
+    return sorted(path for ext in ("cu", "cuh", "inc")
+                  for path in glob.glob(os.path.join(csrc, f"*.{ext}")))
 
 
 def _nvcc() -> str:

@@ -38,6 +38,8 @@ from panorama_opticalflow_tpu_torch.ops.relax_fast import (
 WARP_TILE = (64, 128)
 WARP_MARGIN = 8
 WARP_MAX_OFF = 96
+# blur widths csrc/median5_diffuse.cu is built for
+DIFFUSE_WIDTHS = (3, 5, 7, 9, 11, 13, 15)
 
 
 def _check(name: str, tensors: dict, shapes: dict) -> torch.device:
@@ -157,11 +159,14 @@ def median5_diffuse_plain(x: torch.Tensor, c: torch.Tensor,
 def median5_diffuse(x: torch.Tensor, c: torch.Tensor, ksize: int = 15,
                     sigma: float = 8.0) -> torch.Tensor:
     """Fused per-level median + low-alpha diffusion on (2B, H, W) flow
-    planes with (B, H, W) coefficients ``c = 1 - a0*a1``."""
+    planes with (B, H, W) coefficients ``c = 1 - a0*a1``.  The kernel
+    unrolls its blurs, so it is built for the widths ``DIFFUSE_WIDTHS``
+    only (every preset uses 15)."""
     if x.dim() != 3 or x.shape[0] % 2:
         raise ValueError("median5_diffuse: x must be (2B, H, W)")
-    if ksize % 2 == 0 or not 1 <= ksize <= 31:
-        raise ValueError(f"median5_diffuse: odd ksize <= 31, got {ksize}")
+    if ksize not in DIFFUSE_WIDTHS:
+        raise ValueError(f"median5_diffuse: no kernel is built for ksize="
+                         f"{ksize} (built: {DIFFUSE_WIDTHS})")
     p2, h, w = x.shape
     dev = _check("median5_diffuse", {"x": x, "c": c},
                  {"x": (p2, h, w), "c": (p2 // 2, h, w)})

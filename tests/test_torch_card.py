@@ -122,6 +122,52 @@ def test_median5_kernel_matches_plain(rng, cuda):
         assert torch.equal(got, tk.median5_plain(x))
 
 
+# planes smaller than one tile ((32, 128) for median5, (64, 128) for
+# median5+diffuse), H or W of 1 to 4 (every tap clamped), one short of and
+# one over a tile multiple, rows that do and do not start on 16 bytes, an
+# odd number of plane pairs
+_MEDIAN_SHAPES = [(2, 1, 1), (2, 2, 3), (2, 4, 1), (2, 3, 200), (2, 200, 2),
+                  (2, 31, 127), (2, 33, 129), (2, 63, 255), (2, 65, 257),
+                  (2, 64, 128), (6, 70, 260), (2, 129, 384)]
+
+
+@pytest.mark.parametrize("shape", _MEDIAN_SHAPES)
+def test_median_kernels_match_plain_at_ragged_shapes(rng, cuda, shape):
+    x = rng.standard_normal(shape).astype(np.float32)
+    x[rng.random(shape) < 0.3] = 0.5            # ties
+    x = to_torch(x, cuda)
+    c = to_torch(rng.random((shape[0] // 2,) + shape[1:]).astype(np.float32),
+                 cuda)
+    med = tk.median5(x)
+    torch.cuda.synchronize()
+    assert torch.equal(med, tk.median5_plain(x))
+    got = tk.median5_diffuse(x, c)
+    torch.cuda.synchronize()
+    assert (got - tk.median5_diffuse_plain(x, c)).abs().max().item() <= 1e-5
+    # with c = 0 the fused kernel is the median alone, bit for bit
+    assert torch.equal(tk.median5_diffuse(x, torch.zeros_like(c)), med)
+
+
+@pytest.mark.parametrize("ksize", [3, 7, 13])
+def test_median5_diffuse_kernel_other_built_widths(rng, cuda, ksize):
+    x = to_torch(rng.standard_normal((2, 70, 203)).astype(np.float32), cuda)
+    c = to_torch(rng.random((1, 70, 203)).astype(np.float32), cuda)
+    got = tk.median5_diffuse(x, c, ksize, 2.0)
+    torch.cuda.synchronize()
+    ref = tk.median5_diffuse_plain(x, c, ksize, 2.0)
+    assert (got - ref).abs().max().item() <= 1e-5
+
+
+def test_median5_diffuse_kernel_refuses_a_width_that_is_not_built(rng, cuda):
+    x = to_torch(rng.standard_normal((2, 40, 70)).astype(np.float32), cuda)
+    c = to_torch(rng.random((1, 40, 70)).astype(np.float32), cuda)
+    n = tk.median5_diffuse.launches
+    for ksize in (1, 8, 17):
+        with pytest.raises(ValueError, match="built"):
+            tk.median5_diffuse(x, c, ksize)
+    assert tk.median5_diffuse.launches == n
+
+
 def _relax_planes(rng, cuda, shape, unfused):
     mk = lambda s=0.1: to_torch(
         rng.standard_normal(shape).astype(np.float32) * s, cuda)

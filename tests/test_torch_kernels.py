@@ -25,11 +25,22 @@ each hat pass where the plain versions sum the dense window.  The two
 forms are bit-identical (every other tap's weight is an exact zero); the
 two-tap references at the end of this file hold that on the CPU.
 
+The median kernels on the card select the median with the exchange
+networks of csrc/median25_net.inc, on runs of eight outputs that share
+sorted window columns and merged column pairs.  The tests at the end of this file parse that file
+(the one nvcc includes), prove the network on all 2^25 zero-one inputs,
+and hold an emulation of both kernels' tiles, runs and pass order equal to
+the plain versions (tolerance 0.0: the median selects, and the blur keeps
+the plain version's order of taps).
+
 The kernel-vs-plain checks on the card are in tests/test_torch_card.py,
 which imports no JAX.
 """
 
 import dataclasses
+import itertools
+import os
+import re
 
 import numpy as np
 import pytest
@@ -385,3 +396,266 @@ def test_sample_maps_two_tap_form_equals_dense(D):
         assert torch.equal(nbrs[key], nbrs0[key]), key
     assert torch.equal(Gx, Gx0)
     assert torch.equal(Gy, Gy0)
+
+
+# ---------------------------------------------------------------------------
+# the median selection network and the run-of-four form of the median kernels
+# ---------------------------------------------------------------------------
+
+NET_FILE = os.path.join(os.path.dirname(os.path.abspath(tk.__file__)),
+                        os.pardir, "csrc", "median25_net.inc")
+
+
+def _median_network():
+    """(sorter of one column on 5 wires, merger of two sorted columns on
+    10 wires, selection on the 25 wires of a window given as two merged
+    pairs and a sorted column, wire that holds the median), as nvcc reads
+    them: one macro call a line, anything else a comment or a
+    preprocessor line."""
+    nets = {"COLSWAP": [], "PAIRSWAP": [], "CSWAP": [], "MEDIAN_AT": []}
+    for line in open(NET_FILE):
+        line = line.strip()
+        m = re.fullmatch(r"PANO_([A-Z_]+)\((\d+)(?:, (\d+))?\)", line)
+        if not m:
+            assert not line or line[:2] == "//" or line[0] == "#", line
+        elif m[1] == "MEDIAN_AT":
+            nets[m[1]].append(int(m[2]))
+        else:
+            nets[m[1]].append((int(m[2]), int(m[3])))
+    (at,) = nets["MEDIAN_AT"]
+    return nets["COLSWAP"], nets["PAIRSWAP"], nets["CSWAP"], at
+
+
+def _window_network():
+    """The whole selection of one window on 25 wires (wire 5 * c + r =
+    row r of column c): every column sorted, columns (0, 1) and (2, 3)
+    merged, then the selection."""
+    col, pair, net, at = _median_network()
+    full = [(5 * c + i, 5 * c + j) for c in range(5) for i, j in col]
+    full += [(o + i, o + j) for o in (0, 10) for i, j in pair]
+    return full + net, at
+
+
+def _exchange(v, net):
+    for i, j in net:
+        v[i], v[j] = min(v[i], v[j]), max(v[i], v[j])
+    return v
+
+
+def test_median_network_file_is_what_the_kernels_include():
+    col, pair, net, at = _median_network()
+    assert len(col) == 9 and all(0 <= i < j < 5 for i, j in col)
+    assert all(0 <= i < j < 10 for i, j in pair)
+    assert all(0 <= i < 25 and 0 <= j < 25 and i != j for i, j in net)
+    assert 0 <= at < 25
+    # a run of eight adjacent outputs (pano::MEDIAN_RUN) sorts 12 columns
+    # and merges 6 pairs for its 8 windows: fewer than 99 exchanges an output
+    assert (12 * len(col) + 6 * len(pair) + 8 * len(net)) / 8 < 99
+    # the count chip_smoke.py's bound takes for a median: a column sort and
+    # half a pair merge an output, and the selection's results that are read
+    live, read = {at}, 0
+    for i, j in reversed(net):
+        read += (i in live) + (j in live)
+        if i in live or j in live:
+            live |= {i, j}
+    import chip_smoke
+
+    assert chip_smoke.MEDIAN_OPS == 2 * len(col) + len(pair) + read
+    csrc = os.path.dirname(NET_FILE)
+    common = open(os.path.join(csrc, "common.cuh")).read()
+    assert common.count('#include "median25_net.inc"') == 3
+    for name in ("median5.cu", "median5_diffuse.cu"):
+        src = open(os.path.join(csrc, name)).read()
+        assert "pano::median5_run(" in src
+    # the 32-way sort of the first port is gone
+    assert "k <<= 1" not in common and "0x7f800000" not in common
+
+
+def test_median_column_sorter_and_pair_merger_on_all_zero_one_inputs():
+    col, pair, _, _ = _median_network()
+    for bits in itertools.product((0, 1), repeat=5):
+        assert _exchange(list(bits), col) == sorted(bits)
+    for a, b in itertools.product(range(6), repeat=2):
+        v = [0] * (5 - a) + [1] * a + [0] * (5 - b) + [1] * b
+        assert _exchange(list(v), pair) == sorted(v)
+
+
+def test_median_network_selects_median_of_all_zero_one_inputs():
+    """The 0-1 principle, bit-parallel: a network of min/max exchanges
+    selects the 13th smallest of every 25 reals iff it does so for every
+    25 zeros and ones.  Input n (0 <= n < 2^25) puts bit i of n on wire i;
+    a wire is one packed vector of 2^25 bits (bit n % 64 of word n // 64),
+    an exchange an AND and an OR, and the median wire must read 'at least
+    13 ones' on all 33,554,432 inputs.  The selection takes its three
+    parts in any order (a window is pair, pair, column or column, pair,
+    pair): that is a permutation of the inputs, which 'all inputs' covers."""
+    net, at = _window_network()
+    words = np.arange(1 << 19, dtype=np.uint64)
+    ones = ~np.uint64(0)
+    low = [sum(1 << b for b in range(64) if b >> i & 1) for i in range(6)]
+    wires = [np.full(1 << 19, low[i], np.uint64) if i < 6 else
+             np.where(words >> np.uint64(i - 6) & np.uint64(1), ones,
+                      np.uint64(0)) for i in range(25)]
+    for i, j in net:
+        wires[i], wires[j] = wires[i] & wires[j], wires[i] | wires[j]
+    # popcount(n) = popcount(n % 64) + popcount(n // 64)
+    high = np.zeros(1 << 19, np.int64)
+    for b in range(19):
+        high += (words >> np.uint64(b) & np.uint64(1)).astype(np.int64)
+    at_least = np.array(
+        [sum(1 << b for b in range(64) if bin(b).count("1") >= k)
+         for k in range(8)], np.uint64)        # k = 7: no 6-bit number
+    want = at_least[np.clip(13 - high, 0, 7)]
+    assert np.array_equal(wires[at], want)
+
+
+def _exchange_planes(wires, net):
+    wires = list(wires)
+    for i, j in net:
+        wires[i], wires[j] = (torch.minimum(wires[i], wires[j]),
+                              torch.maximum(wires[i], wires[j]))
+    return wires
+
+
+def _planes_with_ties(rng, shape):
+    """Seeded planes with repeated values, +-0 and +-inf."""
+    x = rng.standard_normal(shape).astype(np.float32)
+    pick = rng.random(shape)
+    x[pick < 0.25] = 0.5
+    x[(pick >= 0.25) & (pick < 0.35)] = 0.0
+    x[(pick >= 0.35) & (pick < 0.45)] = -0.0
+    x[(pick >= 0.45) & (pick < 0.5)] = np.inf
+    x[(pick >= 0.5) & (pick < 0.55)] = -np.inf
+    return T(x)
+
+
+@pytest.mark.parametrize("shape", [(2, 45, 203), (3, 7, 9), (1, 1, 1)])
+def test_median_network_on_planes_equals_plain(rng, shape):
+    """The network on the 25 shifted copies of an edge-padded plane."""
+    net, at = _window_network()
+    x = _planes_with_ties(rng, shape)
+    h, w = shape[1:]
+    xp = trf._pad2(x, 2, 2, 2, 2)
+    wires = [xp[:, r:r + h, c:c + w] for c in range(5) for r in range(5)]
+    assert torch.equal(_exchange_planes(wires, net)[at],
+                       tk.median5_plain(x))
+
+
+RUN = 8     # pano::MEDIAN_RUN: adjacent medians a thread and step
+
+
+def _stage(x, y_first, x_first, rows, cols):
+    """A block's shared-memory window: indices clamped to the plane."""
+    h, w = x.shape[-2:]
+    yy = torch.clamp(torch.arange(rows) + y_first, 0, h - 1)
+    xx = torch.clamp(torch.arange(cols) + x_first, 0, w - 1)
+    return x[..., yy[:, None], xx[None, :]]
+
+
+def _median_runs(xs, rows, runs):
+    """pano::median5_run on every run of a staged window: (rows, 8 * runs)
+    medians from the window's rows x (8 * runs + 4) values.  A run loads 5
+    rows of 12 values, sorts its 12 columns, merges the column pairs
+    (0, 1), (2, 3), ..., and selects each of its 8 medians from two merged
+    pairs and one column: window m is pairs m / 2, m / 2 + 1 and column
+    m + 4 if m is even, column m and pairs (m + 1) / 2, (m + 1) / 2 + 1 if
+    odd."""
+    col, pair, net, at = _median_network()
+    q = RUN * torch.arange(runs)
+    cols = [_exchange_planes([xs[..., r:r + rows, :][..., q + c]
+                              for r in range(5)], col)
+            for c in range(RUN + 4)]
+    pairs = [_exchange_planes(cols[2 * k] + cols[2 * k + 1], pair)
+             for k in range(RUN // 2 + 2)]
+    meds = []
+    for m in range(RUN):
+        k = (m + 1) // 2
+        single = cols[m if m % 2 else m + 4]
+        meds.append(_exchange_planes(pairs[k] + pairs[k + 1] + single,
+                                     net)[at])
+    return torch.stack(meds, -1).flatten(-2)   # run-major: column 8i + m
+
+
+def _median5_tiles(x):
+    """csrc/median5.cu: (32, 128) tiles, 16 runs a row."""
+    h, w = x.shape[-2:]
+    out = torch.full_like(x, float("nan"))
+    for y0 in range(0, h, 32):
+        for x0 in range(0, w, 128):
+            th = min(32, h - y0)
+            xs = _stage(x, y0 - 2, x0 - 2, th + 4, 132)
+            tw = min(128, w - x0)
+            out[..., y0:y0 + th, x0:x0 + tw] = \
+                _median_runs(xs, th, 128 // RUN)[..., :tw]
+    return out
+
+
+def _median5_diffuse_tiles(x, c, ksize, sigma):
+    """csrc/median5_diffuse.cu: (64, 128) tiles; a tile stages its window,
+    takes the medians of the tile and the blur margin in runs of eight,
+    blurs along x in runs of four into (rows, tile width), then along y,
+    and blends."""
+    from panorama_opticalflow_tpu_torch.ops.image import gaussian_kernel_1d
+
+    taps = [float(t) for t in gaussian_kernel_1d(ksize, sigma)]
+    gr = ksize // 2
+    h, w = x.shape[-2:]
+    cc = c.repeat_interleave(2, dim=0)
+    out = torch.full_like(x, float("nan"))
+    for y0 in range(0, h, 64):
+        for x0 in range(0, w, 128):
+            th, tw = min(64, h - y0), min(128, w - x0)
+            mh = th + 2 * gr
+            mruns = -(-(tw + 2 * gr) // RUN)
+            oruns = -(-tw // 4)
+            xs = _stage(x, y0 - gr - 2, x0 - gr - 2, mh + 4,
+                        RUN * mruns + 4)
+            med = _median_runs(xs, mh, mruns)
+            # the x pass runs on 4 * oruns columns; those past the medians
+            # computed above feed no output
+            need = 4 * oruns + 2 * gr
+            med_x = torch.nn.functional.pad(med, (0, max(0, need
+                                                         - med.shape[-1])))
+            accx = torch.zeros(x.shape[:-2] + (mh, 4 * oruns))
+            for t in range(ksize):
+                accx = accx + taps[t] * med_x[..., t:t + 4 * oruns]
+            blur = torch.zeros(x.shape[:-2] + (th, 4 * oruns))
+            for t in range(ksize):
+                blur = blur + taps[t] * accx[..., t:t + th, :]
+            mc = med[..., gr:gr + th, gr:gr + tw]
+            cv = cc[..., y0:y0 + th, x0:x0 + tw]
+            out[..., y0:y0 + th, x0:x0 + tw] = \
+                cv * blur[..., :tw] + (1.0 - cv) * mc
+    return out
+
+
+_RAGGED = [(2, 45, 203), (2, 1, 1), (2, 3, 2), (4, 33, 131), (2, 65, 129),
+           (2, 64, 256)]
+
+
+@pytest.mark.parametrize("shape", _RAGGED)
+def test_median5_run_form_equals_plain(rng, shape):
+    x = _planes_with_ties(rng, shape)
+    assert torch.equal(_median5_tiles(x), tk.median5_plain(x))
+
+
+@pytest.mark.parametrize("shape", _RAGGED)
+@pytest.mark.parametrize("ksize", [15, 5])
+def test_median5_diffuse_run_form_equals_plain(rng, shape, ksize):
+    x = T(rng.standard_normal(shape).astype(np.float32))
+    x[rng.random(shape) < 0.3] = 0.5
+    c = T(rng.random((shape[0] // 2,) + shape[1:]).astype(np.float32))
+    assert torch.equal(_median5_diffuse_tiles(x, c, ksize, 8.0),
+                       tk.median5_diffuse_plain(x, c, ksize, 8.0))
+
+
+def test_median5_diffuse_refuses_a_width_that_is_not_built(rng):
+    x = T(rng.standard_normal((2, 20, 30)).astype(np.float32))
+    c = T(rng.random((1, 20, 30)).astype(np.float32))
+    assert tk.DIFFUSE_WIDTHS == (3, 5, 7, 9, 11, 13, 15)
+    for ksize in (1, 4, 17, 31):
+        with pytest.raises(ValueError, match="built"):
+            tk.median5_diffuse(x, c, ksize)
+    for ksize in tk.DIFFUSE_WIDTHS:
+        assert torch.equal(tk.median5_diffuse(x, c, ksize),
+                           tk.median5_diffuse_plain(x, c, ksize))

@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from panorama_opticalflow_tpu_torch/
-csrc/, then runs seven phases and prints one JSON object per phase line:
+csrc/, then runs nine phases and prints one JSON object per phase line:
 
   A  the card (nvidia-smi name and power limit) and the kernel build;
   B  each of the five kernels against its plain PyTorch version on the
@@ -14,7 +14,8 @@ csrc/, then runs seven phases and prints one JSON object per phase line:
      level's), the kernel's bound (bytes at the memory rate or operations at the float32
      peak, whichever is longer) and, for the warp, the time of
      F.grid_sample on the same inputs; the unfused relax at 2 and 3
-     iterations;
+     iterations; and the three fused-path kernels at the finest level of
+     phase I's pyramid with its leading 16 directions (medians: 32 planes);
   C  the main path: stitch_six of the 6-photo 9000x4000 synthetic set
      (seed 0) with pixflow_low_fast, once warm and once timed; latency,
      peak device memory, each kernel's launch count against the count the
@@ -30,9 +31,19 @@ csrc/, then runs seven phases and prints one JSON object per phase line:
      launch counts, footprint, and RGB SSIM and bit-identical share
      against production;
   G  the search init: pixflow_search_20_fast at 9000x4000 (warm, then
-     timed), and tests/golden/six_64x256_s3_search20.npz at phase E's gate.
+     timed), and tests/golden/six_64x256_s3_search20.npz at phase E's gate;
+  H  the 4-input stitch: stitch_four at 2250x1000 with pixflow_low (seed
+     0), warm, then timed: latency, peak memory, the window the pair's own
+     canvas map gives, launch counts against the expected ones, exact
+     footprint; and tests/golden/four_96x320_s1.npz at phase E's gate;
+  I  batched stitching: stitch_pairs on 8 composed 2250x1000 pairs (seeds
+     0..7) against stitch_pair on each in sequence, in turns (sequential,
+     batched, batched, sequential): both latencies, peak memory, launch
+     counts (batched: one pair's; sequential: eight times that), and per
+     pair the share of equal bytes (>= 0.98) and the 99.9th percentile of
+     the absolute difference (<= 8).
 
-Every timed stitch (C, F, G) runs with the launch counts set to 0 just
+Every timed stitch (C, F, G, H, I) runs with the launch counts set to 0 just
 before it and read just after; the kernel table sums those counts.  Then a
 line with the kernel table, a line with nvidia-smi's name and power
 limit, and as the last line {"ok": true, "device": {...}}.  Any failed
@@ -45,8 +56,11 @@ Two shorter modes for work on the kernels, each after phase A:
     python3 chip_smoke.py --time-against CSRC    every kernel of this tree
         and of the sources in CSRC (an earlier commit's csrc/) on the same
         inputs, in turns: other, this, this, other
-    python3 chip_smoke.py --profile FLOW_ALG     torch.profiler over one
-        warm 9000x4000 stitch: device time by kernel, launches, idle share
+    python3 chip_smoke.py --profile WHAT         torch.profiler over one
+        warm stitch: device time by kernel, launches, idle share.  WHAT is
+        a preset name (the 9000x4000 stitch_six), stitch4 (phase H's
+        stitch) or batched (phase I's 8 pairs, batched and one pair of the
+        sequential form, and the launches of each stage in both forms)
 """
 
 from __future__ import annotations
@@ -78,7 +92,19 @@ HEADLINE = (4000, 9000)
 # 4000 x 3584 pair window's pixflow_low_fast pyramid; the last two are timed
 B_SHAPES = (("ragged", (2, 45, 203)), ("mid", (2, 655, 587)),
             ("headline", (2, 2000, 1792)))
-B_TIMED = ("mid", "headline")
+# the finest level of phase I's pyramid: 8 pairs, both directions, of a
+# 2250-wide canvas wrap-extended by 112 columns a side, at half resolution;
+# only the fused path's kernels run there
+B_BATCHED = ("batched", (16, 500, 1237))
+FUSED_PATH = ("warp_tiled", "relax_phase", "median5_diffuse")
+B_TIMED = ("mid", "headline", "batched")
+# phases H and I: the 4-input stitch's canvas, its preset, the pairs in
+# flight, and tests/test_batching.py's gate
+FOUR = (1000, 2250)
+FOUR_ALG = "pixflow_low"
+BATCH_PAIRS = 8
+BATCH_SAME_MIN = 0.98
+BATCH_P999_MAX = 8
 # crop.plan_chain_windows of the seed-0 headline set: (roll, width,
 # gather_safe) per pair
 HEADLINE_WINDOWS = [(8100, 3584, False), (900, 3584, True),
@@ -318,9 +344,12 @@ def phase_b(dev) -> dict:
 
     rng = np.random.default_rng(0)
     results = {name: {"max_abs_err": 0.0} for name in KERNEL_FILES}
-    for tag, (b, h, w) in B_SHAPES:
+    for tag, (b, h, w) in B_SHAPES + (B_BATCHED,):
         for case in kernel_cases(dev, rng, b, h, w):
             name = case["name"]
+            if tag == "batched" and (name not in FUSED_PATH
+                                     or case.get("check_only")):
+                continue
             got = as_tensor(case["kernel"]())
             torch.cuda.synchronize()
             diff = (got - as_tensor(case["plain"]())).abs()
@@ -397,36 +426,38 @@ def time_against(other_csrc: str, dev) -> None:
         torch.cuda.empty_cache()
 
 
-def profile_stitch(flow_alg: str, dev) -> None:
-    """torch.profiler over one warm 9000 x 4000 stitch_six: device time by
-    kernel name, the launch count and the card's idle share."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    import panorama_opticalflow_tpu_torch as port
-    from panorama_opticalflow_tpu_torch.models import pipeline
-
-    photos_d, top_d, _ = headline_set(dev)
-    cfg = port.StitchConfig(flow_alg=flow_alg)
-    pipeline.stitch_six(photos_d, top_d, cfg, device=dev)   # warm
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    pipeline.stitch_six(photos_d, top_d, cfg, device=dev)
-    torch.cuda.synchronize()
-    latency = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        pipeline.stitch_six(photos_d, top_d, cfg, device=dev)
-        torch.cuda.synchronize()
-        profiled = time.perf_counter() - t0
+def device_rows(prof) -> list[tuple]:
+    """(name, device ms, count) of every kernel a profile saw on the card,
+    longest first."""
     rows = [(e.key, getattr(e, "self_device_time_total",
                             getattr(e, "self_cuda_time_total", 0)) / 1e3,
              e.count) for e in prof.key_averages()
             if str(e.device_type).endswith("CUDA")]
     rows.sort(key=lambda r: -r[1])
+    return rows
+
+
+def profile_run(what: str, run, **more) -> None:
+    """torch.profiler over one warm ``run()``: device time by kernel name,
+    the launch count and the card's idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    run()   # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    latency = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        profiled = time.perf_counter() - t0
+    rows = device_rows(prof)
     device_ms = sum(r[1] for r in rows)
-    emit({"phase": "profile", "flow_alg": flow_alg,
+    emit({"phase": "profile", "what": what, **more,
           "latency_s_unprofiled": latency, "latency_s_profiled": profiled,
           "device_ms": device_ms, "launches": sum(r[2] for r in rows),
           "idle_share_of_unprofiled": 1 - device_ms / 1e3 / latency,
@@ -436,6 +467,72 @@ def profile_stitch(flow_alg: str, dev) -> None:
               if k.startswith("void (anonymous namespace)::")],
           "top": [{"name": k[:80], "ms": ms, "count": n}
                   for k, ms, n in rows[:14]]})
+
+
+def stage_launches(images_l, images_r, cfg) -> dict:
+    """Launches on the card of each stage of a full-canvas pair stitch, on
+    one pair ((H, W, 4) canvases) or on stacks: the stages run one by one,
+    each under its own profile."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from panorama_opticalflow_tpu_torch.models import novel_view, stitcher
+
+    counts, kept = {}, {}
+
+    def stage(name, fn):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            kept[name] = fn()
+            torch.cuda.synchronize()
+        counts[name] = sum(r[2] for r in device_rows(prof))
+
+    def geometry():
+        cmap = stitcher.match_images(images_l, images_r)
+        return (cmap, stitcher.extract_overlap(images_l, cmap),
+                stitcher.extract_overlap(images_r, cmap))
+
+    stage("geometry", geometry)
+    stage("blend", lambda: stitcher.generate_blend(kept["geometry"][0],
+                                                   cfg)[0])
+    stage("flow", lambda: novel_view.prepare_flows(*kept["geometry"][1:],
+                                                   cfg))
+    stage("combine", lambda: novel_view.combine_novel_views(
+        *kept["geometry"][1:], *kept["flow"], kept["blend"]))
+    stage("composite", lambda: stitcher.gather_composite(
+        kept["geometry"][0], images_l, images_r, kept["combine"], cfg))
+    return counts
+
+
+def profile_what(what: str, dev) -> None:
+    import panorama_opticalflow_tpu_torch as port
+    from panorama_opticalflow_tpu_torch.models import pipeline
+
+    if what == "stitch4":
+        photos = [port.to_torch(p, dev) for p in
+                  port.synthesize_four_input_set(*FOUR, seed=0)]
+        cfg = port.StitchConfig(flow_alg=FOUR_ALG)
+        profile_run(what, lambda: pipeline.stitch_four(photos, cfg,
+                                                       device=dev),
+                    canvas=list(FOUR), flow_alg=FOUR_ALG)
+    elif what == "batched":
+        ls, rs = batch_pairs(dev)
+        cfg = port.StitchConfig(flow_alg=FOUR_ALG)
+        profile_run(what, lambda: pipeline.stitch_pairs(ls, rs, cfg,
+                                                        device=dev),
+                    form="batched", pairs=BATCH_PAIRS, flow_alg=FOUR_ALG)
+        profile_run(what, lambda: pipeline.stitch_pair(ls[0], rs[0], cfg),
+                    form="sequential, one pair of the eight",
+                    flow_alg=FOUR_ALG)
+        emit({"phase": "profile", "what": "stage launches",
+              "one_pair": stage_launches(ls[0], rs[0], cfg),
+              "batched": stage_launches(ls, rs, cfg),
+              "pairs": BATCH_PAIRS})
+    else:
+        photos_d, top_d, _ = headline_set(dev)
+        cfg = port.StitchConfig(flow_alg=what)
+        profile_run(what, lambda: pipeline.stitch_six(photos_d, top_d, cfg,
+                                                      device=dev),
+                    canvas=list(HEADLINE), flow_alg=what)
 
 
 def expected_launches(windows, canvas_h: int, params) -> dict:
@@ -466,44 +563,52 @@ def expected_launches(windows, canvas_h: int, params) -> dict:
     return n
 
 
-def drive(photos_d, top_d, cfg, dev, warm: bool):
-    """One timed stitch_six (after a warm one if ``warm``), with the launch
+def drive_run(run, inputs, warm: bool):
+    """One timed ``run()`` (after a warm one if ``warm``), with the launch
     counts and the peak memory reset just before it and read just after.
     Returns the output and a record of the measurements, including
     whether the output's alpha footprint is exactly the union of the
-    inputs'."""
+    footprints of ``inputs`` (canvases, or stacks of canvases)."""
     import torch
 
-    from panorama_opticalflow_tpu_torch.models import pipeline
     from panorama_opticalflow_tpu_torch.ops import kernels
 
     rec = {}
     if warm:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        pipeline.stitch_six(photos_d, top_d, cfg, device=dev)
+        run()
         torch.cuda.synchronize()
         rec["warm_s"] = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    out = pipeline.stitch_six(photos_d, top_d, cfg, device=dev)
+    out = run()
     torch.cuda.synchronize()
     rec["latency_s"] = time.perf_counter() - t0
     rec["launches"] = {k.__name__: k.launches for k in kernels.KERNELS}
     rec["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
-    union = top_d[..., 3] > 0
-    for p in photos_d:
-        union |= p[..., 3] > 0
+    union = inputs[0][..., 3] > 0
+    for p in inputs[1:]:
+        union = union | (p[..., 3] > 0)
     rec["alpha_footprint_exact"] = bool(torch.equal(out[..., 3] > 0, union))
     return out, rec
+
+
+def drive(photos_d, top_d, cfg, dev, warm: bool):
+    """``drive_run`` of one stitch_six."""
+    from panorama_opticalflow_tpu_torch.models import pipeline
+
+    return drive_run(lambda: pipeline.stitch_six(photos_d, top_d, cfg,
+                                                 device=dev),
+                     [top_d, *photos_d], warm)
 
 
 def check_run(tag: str, out, rec, expected: dict, h: int, w: int) -> None:
     import torch
 
-    check(tuple(out.shape) == (h, w, 4) and out.dtype == torch.uint8,
-          f"{tag}: stitch_six output shape/dtype")
+    check(tuple(out.shape[-3:]) == (h, w, 4) and out.dtype == torch.uint8,
+          f"{tag}: output shape/dtype")
     for name, n in rec["launches"].items():
         check(n == expected[name],
               f"{tag} {name}: {n} launches, expected {expected[name]}")
@@ -734,6 +839,121 @@ def phase_g(dev, photos_d, top_d) -> dict:
     return rec["launches"]
 
 
+def full_canvas_flow_window(w: int, cfg) -> list[tuple]:
+    """The one window ``expected_launches`` counts for a pair stitched on
+    the full canvas: its flow runs on the wrap-extended canvas."""
+    return [(0, w + 2 * (w // cfg.flow_extend_div), False)]
+
+
+def phase_h(dev) -> dict:
+    """The 4-input single-pass stitch at 2250 x 1000 through its entry
+    point, and its pinned golden; returns the timed run's launch counts."""
+    import panorama_opticalflow_tpu_torch as port
+    from panorama_opticalflow_tpu_torch.models import crop, pipeline, stitcher
+
+    h, w = FOUR
+    cfg = port.StitchConfig(flow_alg=FOUR_ALG)
+    photos = [port.to_torch(p, dev)
+              for p in port.synthesize_four_input_set(h, w, seed=0)]
+    image_l, image_r = pipeline.compose_four(photos)
+    window = crop.pair_window(stitcher.match_images(image_l, image_r), cfg)
+    # four seams around the circle: the pair's window is the whole canvas
+    check(window == (0, w, False), f"phase H window {window}")
+    expected = expected_launches(full_canvas_flow_window(w, cfg), h,
+                                 cfg.flow_params)
+    out, rec = drive_run(lambda: pipeline.stitch_four(photos, cfg,
+                                                      device=dev),
+                         [image_l, image_r], warm=True)
+    emit({"phase": "H", "canvas": [h, w], "flow_alg": cfg.flow_alg,
+          "window": window, **rec, "expected_launches": expected})
+    check_run("phase H", out, rec, expected, h, w)
+    for name in FUSED_PATH:
+        check(rec["launches"][name] > 0, f"phase H: {name} never launched")
+    del out
+
+    small = port.to_numpy(pipeline.stitch_four(
+        port.synthesize_four_input_set(96, 320, seed=1), cfg, device=dev))
+    gate = golden_gate(small, load_golden("four_96x320_s1"))
+    emit({"phase": "H", "golden": "four_96x320_s1", **gate})
+    check(gate["gate_ok"], "phase H golden gate")
+    return rec["launches"]
+
+
+def batch_pairs(dev):
+    """Phase I's inputs: the composed canvases of BATCH_PAIRS 4-input sets
+    (seeds 0, 1, ...) as two (N, H, W, 4) stacks on the card."""
+    import torch
+
+    import panorama_opticalflow_tpu_torch as port
+    from panorama_opticalflow_tpu_torch.models import pipeline
+
+    pairs = [pipeline.compose_four(
+        [port.to_torch(p, dev)
+         for p in port.synthesize_four_input_set(*FOUR, seed=k)])
+        for k in range(BATCH_PAIRS)]
+    return (torch.stack([p[0] for p in pairs]),
+            torch.stack([p[1] for p in pairs]))
+
+
+def phase_i(dev) -> dict:
+    """stitch_pairs on 8 pairs against stitch_pair on each in sequence, in
+    turns; returns the launch counts of the last batched run."""
+    import numpy as np
+    import torch
+
+    import panorama_opticalflow_tpu_torch as port
+    from panorama_opticalflow_tpu_torch.models import pipeline, pixflow
+
+    h, w = FOUR
+    cfg = port.StitchConfig(flow_alg=FOUR_ALG)
+    ls, rs = batch_pairs(dev)
+    window = full_canvas_flow_window(w, cfg)
+    fw = window[0][1]
+    f = cfg.flow_params.downscale_factor
+    finest = pixflow.pyramid_sizes(int(h * f), int(fw * f),
+                                   cfg.flow_params)[0]
+    check((2 * BATCH_PAIRS, *finest) == B_BATCHED[1],
+          f"phase I finest level {finest}, phase B checked {B_BATCHED[1]}")
+    one = expected_launches(window, h, cfg.flow_params)
+    expected = {"batched": one,
+                "sequential": {k: BATCH_PAIRS * n for k, n in one.items()}}
+    forms = {
+        "batched": lambda: pipeline.stitch_pairs(ls, rs, cfg, device=dev),
+        "sequential": lambda: torch.stack(
+            [pipeline.stitch_pair(a, b, cfg) for a, b in zip(ls, rs)])}
+    forms["batched"]()   # warm (phase H warmed the sequential form's ops)
+    outs, recs = {}, {"batched": [], "sequential": []}
+    for form in ("sequential", "batched", "batched", "sequential"):
+        out, rec = drive_run(forms[form], [ls, rs], warm=False)
+        check_run(f"phase I {form}", out, rec, expected[form], h, w)
+        check(out.shape[0] == BATCH_PAIRS, f"phase I {form}: {out.shape}")
+        recs[form].append(rec)
+        outs[form] = out
+    agree = []
+    for got, ref in zip(outs["batched"], outs["sequential"]):
+        diff = np.abs(port.to_numpy(got).astype(np.int16)
+                      - port.to_numpy(ref).astype(np.int16))
+        agree.append({"same_share": float((diff == 0).mean()),
+                      "p999_abs_diff": float(np.percentile(diff, 99.9)),
+                      "max_abs_diff": int(diff.max())})
+    emit({"phase": "I", "pairs": BATCH_PAIRS, "canvas": [h, w],
+          "flow_alg": cfg.flow_alg, "finest_level": list(finest),
+          "expected_launches": expected,
+          **{f"{form}_{key}": [r[key] for r in recs[form]]
+             for form in recs for key in ("latency_s", "launches",
+                                          "max_memory_allocated_bytes")},
+          "agreement": agree, "same_share_min": BATCH_SAME_MIN,
+          "p999_abs_diff_max": BATCH_P999_MAX})
+    for k, a in enumerate(agree):
+        check(a["same_share"] >= BATCH_SAME_MIN
+              and a["p999_abs_diff"] <= BATCH_P999_MAX,
+              f"phase I pair {k}: batched against sequential {a}")
+    for name in FUSED_PATH:
+        check(recs["batched"][-1]["launches"][name] > 0,
+              f"phase I: {name} never launched")
+    return recs["batched"][-1]["launches"]
+
+
 def main() -> None:
     import argparse
 
@@ -743,8 +963,9 @@ def main() -> None:
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--time-against", metavar="CSRC",
                       help="time every kernel against the sources in CSRC")
-    mode.add_argument("--profile", metavar="FLOW_ALG",
-                      help="torch.profiler over one 9000x4000 stitch")
+    mode.add_argument("--profile", metavar="WHAT",
+                      help="torch.profiler over one stitch: a preset name "
+                           "(9000x4000 stitch_six), stitch4 or batched")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -760,7 +981,7 @@ def main() -> None:
         if args.time_against:
             time_against(args.time_against, dev)
         else:
-            profile_stitch(args.profile, dev)
+            profile_what(args.profile, dev)
         print(smi, flush=True)
         return
     results = phase_b(dev)
@@ -772,8 +993,13 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_e(dev)
     launches_f = phase_f(dev, photos_d, top_d)
-    counts = [launches_c, *launches_f.values(),
-              phase_g(dev, photos_d, top_d)]
+    launches_g = phase_g(dev, photos_d, top_d)
+    del photos_d, top_d
+    torch.cuda.empty_cache()
+    launches_h = phase_h(dev)
+    launches_i = phase_i(dev)
+    counts = [launches_c, *launches_f.values(), launches_g, launches_h,
+              launches_i]
     launches = {name: sum(c[name] for c in counts) for name in KERNEL_FILES}
     for name, n in launches.items():
         check(n > 0, f"{name} was never launched on a main path")
@@ -781,7 +1007,9 @@ def main() -> None:
     # one stitch of each preset, as counted in phase C and in phase F's
     # production run (each checked against expected_launches there)
     per_stitch = {"pixflow_low_fast": launches_c,
-                  "pixflow_low": launches_f["production"]}
+                  "pixflow_low": launches_f["production"],
+                  "stitch_four": launches_h,
+                  "stitch_pairs_of_8": launches_i}
     emit({"kernels": [
         {"name": name, "route": "cuda",
          "source": "panorama_opticalflow_tpu_torch/" + KERNEL_FILES[name][0],

@@ -27,8 +27,10 @@ from panorama_opticalflow_tpu_torch.utils.config import (  # noqa: F401
     flow_params_by_name,
 )
 from panorama_opticalflow_tpu_torch.utils.data import (  # noqa: F401
+    endpoint_error,
     ssim,
     synthesize_fisheye_set,
+    synthesize_four_input_set,
 )
 
 __version__ = "0.1.0"

@@ -99,6 +99,14 @@ def pair_window(canvas_map: torch.Tensor, cfg: StitchConfig,
                                            cfg.gather_search_radius)
 
 
+def crop_window(canvas_map: torch.Tensor, cfg: StitchConfig,
+                margin: int = 64) -> tuple[int, int]:
+    """(roll, width) such that rolling the canvas left by ``roll`` makes
+    columns [0, width) cover overlap + margin + extension; width == W
+    means no crop."""
+    return pair_window(canvas_map, cfg, margin)[:2]
+
+
 def plan_chain_windows(photos: list[torch.Tensor], top: torch.Tensor,
                        cfg: StitchConfig, margin: int = 64
                        ) -> list[tuple[int, int, bool]]:

@@ -7,8 +7,8 @@ from __future__ import annotations
 import torch
 
 from panorama_opticalflow_tpu_torch.utils.config import StitchConfig
-from panorama_opticalflow_tpu_torch.models.pixflow import \
-    compute_optical_flow_pair
+from panorama_opticalflow_tpu_torch.models.pixflow import (
+    compute_optical_flow_pair, compute_optical_flow_pairs)
 from panorama_opticalflow_tpu_torch.ops import image as im
 from panorama_opticalflow_tpu_torch.ops.warp import (
     sample_nearest_wrap, sample_nearest_wrap_tiled)
@@ -28,12 +28,17 @@ TILED_SAMPLER_MIN_W = 512
 def prepare_flows(image_l: torch.Tensor, image_r: torch.Tensor,
                   cfg: StitchConfig) -> tuple[torch.Tensor, torch.Tensor]:
     """Bidirectional flow on the wrap-extended overlap images
-    (CPU/OpticalFlow.cpp:102-145): (flow L->R, flow R->L), (H, W, 2)."""
-    length = image_l.shape[1] // cfg.flow_extend_div
-    flow_lr, flow_rl = compute_optical_flow_pair(
-        im.wrap_extend_x(image_l, length), im.wrap_extend_x(image_r, length),
+    (CPU/OpticalFlow.cpp:102-145): (flow L->R, flow R->L), (H, W, 2); or,
+    on (N, H, W, 4) stacks, the flows of N pairs from one pyramid
+    descent, (N, H, W, 2)."""
+    length = image_l.shape[-2] // cfg.flow_extend_div
+    solve = (compute_optical_flow_pairs if image_l.dim() == 4
+             else compute_optical_flow_pair)
+    flow_lr, flow_rl = solve(
+        im.wrap_extend_x(image_l, length, -2),
+        im.wrap_extend_x(image_r, length, -2),
         cfg.flow_params, "left", "right")
-    return im.crop_x(flow_lr, length), im.crop_x(flow_rl, length)
+    return im.crop_x(flow_lr, length, -2), im.crop_x(flow_rl, length, -2)
 
 
 def combine_novel_views(image_l: torch.Tensor, image_r: torch.Tensor,
@@ -42,8 +47,9 @@ def combine_novel_views(image_l: torch.Tensor, image_r: torch.Tensor,
     """combineNovelViews (CPU/OpticalFlow.cpp:30-92): colorL samples imageL
     through flowRtoL scaled by blendR, colorR samples imageR through
     flowLtoR scaled by blendL; transparent where either sample has zero
-    alpha, otherwise a ghost-gated softmax mix."""
-    h, w = image_l.shape[:2]
+    alpha, otherwise a ghost-gated softmax mix.  Images (H, W, 4), flows
+    (H, W, 2) and blend (H, W), or all with a leading N."""
+    h, w = image_l.shape[-3:-1]
     blend_r = blend
     blend_l = 1.0 - blend_r
     sampler = (sample_nearest_wrap_tiled
@@ -79,7 +85,7 @@ def combine_novel_views(image_l: torch.Tensor, image_r: torch.Tensor,
     w_r = (blend_r + deghost * (softmax_r - blend_r))[..., None]
     rgb = color_l[..., :3] * w_l + color_r[..., :3] * w_r
     rgb_u8 = torch.clamp(torch.round(rgb), 0, 255).to(torch.uint8)
-    out = torch.cat([rgb_u8, torch.full(rgb_u8.shape[:2] + (1,), 255,
+    out = torch.cat([rgb_u8, torch.full(rgb_u8.shape[:-1] + (1,), 255,
                                         dtype=torch.uint8,
                                         device=rgb_u8.device)], dim=-1)
     transparent = (color_l[..., 3] == 0) | (color_r[..., 3] == 0)

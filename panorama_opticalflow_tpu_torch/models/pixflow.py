@@ -4,7 +4,9 @@ the reference's ``models/pixflow.py``, CPU/PixFlow.hpp:28-457).
 Downscale, grey + alpha, pre-blur, a 0.9- (or 0.8-) factor pyramid, and
 per level: Jacobi relaxation (4-neighbour propagation + descent), median
 filter and low-alpha diffusion; then the final upsample and blur.  Both
-flow directions of a pair are solved together on a leading batch of 2.
+flow directions of a pair are solved together on a leading batch of 2,
+and ``compute_optical_flow_pairs`` solves N pairs in one pyramid descent
+on a leading batch of 2N (entry 2n + d is direction d of pair n).
 
 The pyramid runs unrolled (the reference's rung scan only shrinks XLA
 compiles, and its border padding differs); the port matches the
@@ -69,12 +71,14 @@ def _build_pyramid(img: torch.Tensor,
 def error_function(cand: torch.Tensor, i0x: torch.Tensor, i0y: torch.Tensor,
                    i1g: torch.Tensor, blurred_flow: torch.Tensor,
                    params: FlowParams) -> torch.Tensor:
-    """errorFunction (CPU/PixFlow.hpp:427-456) on one direction: ``cand``
-    and ``i1g`` are (H, W, 2), returns the (H, W) error."""
-    h, w = cand.shape[:2]
+    """errorFunction (CPU/PixFlow.hpp:427-456): ``cand`` and ``i1g`` are
+    (H, W, 2), returns the (H, W) error; or all with a leading batch of
+    directions."""
+    h, w = cand.shape[-3:-1]
     xs = torch.arange(w, dtype=torch.float32, device=cand.device)[None, :]
     ys = torch.arange(h, dtype=torch.float32, device=cand.device)[:, None]
-    g1 = bilinear_extend(i1g, xs + cand[..., 0], ys + cand[..., 1])
+    g1 = bilinear_extend(i1g, xs + cand[..., 0], ys + cand[..., 1],
+                         batched=cand.dim() == 4)
     dx = i0x - g1[..., 0]
     dy = i0y - g1[..., 1]
     data = torch.sqrt(dx * dx + dy * dy)
@@ -87,12 +91,12 @@ def error_function(cand: torch.Tensor, i0x: torch.Tensor, i0y: torch.Tensor,
 
 
 def _shift_with_valid(arr: torch.Tensor, dy: int, dx: int):
-    """out[y, x] = arr[y - dy, x - dx], zero outside; plus the validity
-    map."""
-    h, w = arr.shape[:2]
+    """out[..., y, x, :] = arr[..., y - dy, x - dx, :] of a flow, zero
+    outside; plus the (H, W) validity map."""
+    h, w = arr.shape[-3:-1]
     out = torch.zeros_like(arr)
-    out[max(dy, 0):h + min(dy, 0), max(dx, 0):w + min(dx, 0)] = \
-        arr[max(-dy, 0):h - max(dy, 0), max(-dx, 0):w - max(dx, 0)]
+    out[..., max(dy, 0):h + min(dy, 0), max(dx, 0):w + min(dx, 0), :] = \
+        arr[..., max(-dy, 0):h - max(dy, 0), max(-dx, 0):w - max(dx, 0), :]
     yy = torch.arange(h, device=arr.device)[:, None]
     xx = torch.arange(w, device=arr.device)[None, :]
     valid = (yy - dy >= 0) & (yy - dy < h) & (xx - dx >= 0) & (xx - dx < w)
@@ -101,9 +105,11 @@ def _shift_with_valid(arr: torch.Tensor, dy: int, dx: int):
 
 def relax_iteration(flow, i0x, i0y, i1g, blurred_flow, update_mask,
                     params: FlowParams) -> torch.Tensor:
-    """One Jacobi round on one direction: 4-neighbour propagation
-    (strictly-better proposals, CPU/PixFlow.hpp:342-362) + one
-    finite-difference descent step (CPU/PixFlow.hpp:364-386)."""
+    """One Jacobi round: 4-neighbour propagation (strictly-better
+    proposals, CPU/PixFlow.hpp:342-362) + one finite-difference descent
+    step (CPU/PixFlow.hpp:364-386).  On one direction ((H, W, 2) flow,
+    (H, W) planes) or on a leading batch of directions, each iterated
+    exactly as alone: every op is a gather or elementwise."""
     def err(c):
         return error_function(c, i0x, i0y, i1g, blurred_flow, params)
 
@@ -219,18 +225,23 @@ def _level_core(i0x: torch.Tensor, i0y: torch.Tensor, i1g: torch.Tensor,
     else:
         blurred_flow = _blur_flow(flow, params)
         for _ in range(phases):
-            outs = []
-            for b in range(nb):
-                f = flow[b]
-                for _ in range(iters):
-                    f = relax_iteration(f, i0x[b], i0y[b], i1g[b],
-                                        blurred_flow[b], update_mask[b],
-                                        params)
-                outs.append(f)
-            flow = _from_planes(im.median5(_as_planes(torch.stack(outs))), nb)
-    # low-alpha diffusion (C8b), blur on channel-split planes
-    blurred = _blur_flow(flow, params)
-    c = (1.0 - a0 * a1)[..., None]
+            f = flow
+            for _ in range(iters):
+                f = relax_iteration(f, i0x, i0y, i1g, blurred_flow,
+                                    update_mask, params)
+            flow = _from_planes(im.median5(_as_planes(f)), nb)
+    return low_alpha_flow_diffusion(flow, a0, a1, params)
+
+
+def low_alpha_flow_diffusion(flow: torch.Tensor, alpha0: torch.Tensor,
+                             alpha1: torch.Tensor,
+                             params: FlowParams) -> torch.Tensor:
+    """flow <- lerp(flow, gauss15x15sigma8(flow), 1 - a0*a1)
+    (CPU/PixFlow.hpp:388-405) on an (H, W, 2) flow and (H, W) alphas, or
+    on a leading batch of them; the blur runs on channel-split planes."""
+    blurred = _blur_flow(flow.reshape((-1,) + flow.shape[-3:]),
+                         params).reshape(flow.shape)
+    c = (1.0 - alpha0 * alpha1)[..., None]
     return c * blurred + (1.0 - c) * flow
 
 
@@ -380,17 +391,25 @@ def patch_match_level(i0: torch.Tensor, i1: torch.Tensor,
                        alpha1[None], flow[None], params, coarsest)[0]
 
 
+def _partner(x: torch.Tensor) -> torch.Tensor:
+    """(2N, ...) planes, entry 2n + d the image d of pair n: each entry's
+    partner, the other image of its pair."""
+    return x.view((-1, 2) + x.shape[1:]).flip(1).reshape(x.shape)
+
+
 def patch_match_level_batched(imgs: torch.Tensor, alphas: torch.Tensor,
                               flow: torch.Tensor | None,
                               hints: tuple[str, str],
                               params: FlowParams) -> torch.Tensor:
-    """One pyramid level for both directions of a pair: ``imgs``/``alphas``
-    (2, H, W); direction b solves flow from imgs[b] to imgs[1-b] with the
-    hint hints[b].  ``flow`` is (2, H, W, 2), or None at the coarsest
+    """One pyramid level for both directions of N pairs:
+    ``imgs``/``alphas`` (2N, H, W), entry 2n + d the image d of pair n;
+    direction 2n + d solves the flow from that image to its partner with
+    the hint hints[d].  ``flow`` is (2N, H, W, 2), or None at the coarsest
     level."""
+    nb = imgs.shape[0]
     gx, gy = _gradients(imgs, params)
-    i1g = torch.stack([gx.flip(0), gy.flip(0)], dim=-1)
-    a0, a1 = alphas, alphas.flip(0)
+    i1g = torch.stack([_partner(gx), _partner(gy)], dim=-1)
+    a0, a1 = alphas, _partner(alphas)
 
     coarsest = flow is None
     if coarsest and _sub_floor_sizes(*imgs.shape[1:], params):
@@ -399,22 +418,24 @@ def patch_match_level_batched(imgs: torch.Tensor, alphas: torch.Tensor,
         # path off the upsampled init
         flow = _floor_twin_flow(
             torch.cat([imgs, alphas]), imgs.shape[1:],
-            lambda p, tp: patch_match_level_batched(p[:2], p[2:], None,
+            lambda p, tp: patch_match_level_batched(p[:nb], p[nb:], None,
                                                     hints, tp),
             params)
         coarsest = False
     elif coarsest:
+        i1 = _partner(imgs)
         flow = torch.stack([
-            _initial_flow(imgs[b], imgs[1 - b], a0[b], a1[b], hint, params)
-            for b, hint in enumerate(hints)])
+            _initial_flow(imgs[b], i1[b], a0[b], a1[b], hints[b % 2], params)
+            for b in range(nb)])
 
     return _level_core(gx, gy, i1g, a0, a1, flow, params, coarsest)
 
 
 def _preprocess(rgba: torch.Tensor, params: FlowParams,
                 out_hw: tuple[int, int]) -> tuple[torch.Tensor, torch.Tensor]:
-    """Downscale + grey/alpha floats + pre-blur (CPU/PixFlow.hpp:78-103)."""
-    r = im.resize_u8(rgba, out_hw, "cubic")
+    """Downscale + grey/alpha floats + pre-blur (CPU/PixFlow.hpp:78-103)
+    of an (H, W, 4) image or an (N, H, W, 4) stack."""
+    r = im.resize_u8(rgba, out_hw, "cubic", row_axis=rgba.dim() - 3)
     g = im.rgba_to_gray_u8(r).float() / 255.0
     a = r[..., 3].float() / 255.0
     g = im.gaussian_blur(g, params.pre_blur_kernel_width,
@@ -456,33 +477,49 @@ def compute_optical_flow(rgba0: torch.Tensor, rgba1: torch.Tensor,
                         1)[0]
 
 
-def compute_optical_flow_pair(rgba0: torch.Tensor, rgba1: torch.Tensor,
-                              params: FlowParams, hint01: str = "left",
-                              hint10: str = "right"
-                              ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Both flow directions of a pair in one batched pyramid descent:
-    returns (flow 0->1, flow 1->0), each (H, W, 2) float32 at the input
-    resolution of the (H, W, 4) uint8 inputs."""
-    h, w = rgba0.shape[:2]
+def compute_optical_flow_pairs(rgba0: torch.Tensor, rgba1: torch.Tensor,
+                               params: FlowParams, hint01: str = "left",
+                               hint10: str = "right"
+                               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Both flow directions of N pairs in one batched pyramid descent on a
+    leading batch of 2N: (N, H, W, 4) uint8 stacks in, (flows 0->1, flows
+    1->0) out, each (N, H, W, 2) float32 at the input resolution.  Every
+    pair is solved as ``compute_optical_flow_pair`` solves it alone."""
+    n, h, w = rgba0.shape[:3]
     dh = int(h * params.downscale_factor)
     dw = int(w * params.downscale_factor)
     g0, a0 = _preprocess(rgba0, params, (dh, dw))
     g1, a1 = _preprocess(rgba1, params, (dh, dw))
 
+    def interleave(x0, x1):
+        return torch.stack([x0, x1], dim=1).reshape(2 * n, dh, dw)
+
     sizes = pyramid_sizes(dh, dw, params)
-    p_g = _build_pyramid(torch.stack([g0, g1]), sizes)
-    p_a = _build_pyramid(torch.stack([a0, a1]), sizes)
+    p_g = _build_pyramid(interleave(g0, g1), sizes)
+    p_a = _build_pyramid(interleave(a0, a1), sizes)
     hints = (hint01, hint10)
 
-    n = len(sizes)
-    flow = patch_match_level_batched(p_g[n - 1], p_a[n - 1], None, hints,
-                                     params)
-    for level in range(n - 2, -1, -1):
+    top = len(sizes) - 1
+    flow = patch_match_level_batched(p_g[top], p_a[top], None, hints, params)
+    for level in range(top - 1, -1, -1):
         flow = _from_planes(im.resize_planes(_as_planes(flow), sizes[level],
-                                             "cubic"), 2)
+                                             "cubic"), 2 * n)
         flow = flow * (1.0 / params.pyr_scale_factor)
         flow = patch_match_level_batched(p_g[level], p_a[level], flow, hints,
                                          params)
 
-    flow = _from_planes(_final_flow(_as_planes(flow), (h, w), params), 2)
-    return flow[0], flow[1]
+    flow = _from_planes(_final_flow(_as_planes(flow), (h, w), params), 2 * n)
+    flow = flow.view(n, 2, h, w, 2)
+    return flow[:, 0], flow[:, 1]
+
+
+def compute_optical_flow_pair(rgba0: torch.Tensor, rgba1: torch.Tensor,
+                              params: FlowParams, hint01: str = "left",
+                              hint10: str = "right"
+                              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Both flow directions of one pair, (H, W, 4) uint8 inputs: returns
+    (flow 0->1, flow 1->0), each (H, W, 2) float32 at the input
+    resolution.  The N = 1 case of ``compute_optical_flow_pairs``."""
+    flow01, flow10 = compute_optical_flow_pairs(rgba0[None], rgba1[None],
+                                                params, hint01, hint10)
+    return flow01[0], flow10[0]

@@ -8,12 +8,24 @@ Map codes: 0 = empty, 100 = L only, 50 = R only, 150 = overlap.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from panorama_opticalflow_tpu_torch.utils.config import StitchConfig
 from panorama_opticalflow_tpu_torch.ops import image as im
 from panorama_opticalflow_tpu_torch.ops.distance import (
     eight_ray_min_distance, two_class_hole_search)
+
+
+class StitchContext(NamedTuple):
+    """Per-pair stitch state (the reference's Stitchtools fields)."""
+
+    map: torch.Tensor           # (H, W) uint8 canvas map, {0, 50, 100, 150}
+    overlapped_l: torch.Tensor  # (H, W, 4) uint8, L masked to the overlap
+    overlapped_r: torch.Tensor  # (H, W, 4) uint8, R masked to the overlap
+    blend: torch.Tensor         # (H, W) float32 in [0, 1]
+    merged_dis: torch.Tensor    # (H, W) float32, to the nearest pure region
 
 
 def match_images(image_l: torch.Tensor, image_r: torch.Tensor) -> torch.Tensor:
@@ -50,8 +62,10 @@ def generate_blend(canvas_map: torch.Tensor, cfg: StitchConfig,
     reproducing the reference as it is: the block grid uses
     ``step // scale`` and the row test runs in decimated units, and the
     selective smoothing reduces to an identity where
-    ``k_sel // scale < 2``.  Returns (blend, merged_dis), float32."""
-    h, w = canvas_map.shape
+    ``k_sel // scale < 2``.  Without a window ``canvas_map`` may be a
+    stack (N, H, W): the fields of N canvases, each made as alone.
+    Returns (blend, merged_dis), float32."""
+    h, w = canvas_map.shape[-2:]
     step = max(1, min(h, w) // cfg.blend_step_div)
     max_i = w / 2.0
     none_val = 10.0 * w
@@ -66,18 +80,18 @@ def generate_blend(canvas_map: torch.Tensor, cfg: StitchConfig,
     else:
         center = canvas_map
         out_w = w
-    cs = center[::s, ::s] if s > 1 else center
+    cs = center[..., ::s, ::s] if s > 1 else center
 
     if windowed:
         d_l = eight_ray_min_distance(cs == 100, step_s, max_i / s)
         d_r = eight_ray_min_distance(cs == 50, step_s, max_i / s)
     else:
         length_s = (w // cfg.blend_extend_div) // s
-        ext = im.wrap_extend_x(cs, length_s)
+        ext = im.wrap_extend_x(cs, length_s, -1)
         d_l = im.crop_x(eight_ray_min_distance(ext == 100, step_s, max_i / s),
-                        length_s)
+                        length_s, -1)
         d_r = im.crop_x(eight_ray_min_distance(ext == 50, step_s, max_i / s),
-                        length_s)
+                        length_s, -1)
     if s > 1:
         d_l = d_l * s
         d_r = d_r * s
@@ -94,7 +108,7 @@ def generate_blend(canvas_map: torch.Tensor, cfg: StitchConfig,
                                     torch.where(cs == 150, counted,
                                                 zero + 0.5)))
     merged_dis = torch.where(cs == 150, merged_dis, zero)
-    h_s, out_w_s = blend.shape
+    h_s, out_w_s = blend.shape[-2:]
 
     # selective smoothing: blocks whose top-left MergedDis > step get a
     # rows/130 box blur (CPU/StitchTool.cpp:130-142), then a global
@@ -104,7 +118,8 @@ def generate_blend(canvas_map: torch.Tensor, cfg: StitchConfig,
         ks = max(1, k_sel // s)
         blurred = im.box_blur(blend, ks, ks)
         hq, wq = h_s // step_s, out_w_s // step_s
-        sel = merged_dis[: hq * step_s: step_s, : wq * step_s: step_s] > step
+        sel = merged_dis[..., : hq * step_s: step_s,
+                         : wq * step_s: step_s] > step
         dev = blend.device
         # a block starting at q*step is processed iff q*step + step < dim
         qy = torch.arange(hq, device=dev) * step_s + step_s < h_s
@@ -114,9 +129,9 @@ def generate_blend(canvas_map: torch.Tensor, cfg: StitchConfig,
         else:
             qx = torch.arange(wq, device=dev) * step_s * s + step < w
         sel = sel & qy[:, None] & qx[None, :]
-        sel_full = torch.zeros((h_s, out_w_s), dtype=torch.bool, device=dev)
-        sel_full[: hq * step_s, : wq * step_s] = sel.repeat_interleave(
-            step_s, 0).repeat_interleave(step_s, 1)
+        sel_full = torch.zeros(blend.shape, dtype=torch.bool, device=dev)
+        sel_full[..., : hq * step_s, : wq * step_s] = sel.repeat_interleave(
+            step_s, -2).repeat_interleave(step_s, -1)
         blend = torch.where(sel_full, blurred, blend)
 
     k_glob = h // cfg.blend_global_blur_div
@@ -125,9 +140,19 @@ def generate_blend(canvas_map: torch.Tensor, cfg: StitchConfig,
         blend = im.box_blur(blend, kg, kg)
 
     if s > 1:
-        blend = im.resize(blend, (h, out_w), "linear")
-        merged_dis = im.resize(merged_dis, (h, out_w), "linear")
+        blend = im.resize_planes(blend, (h, out_w), "linear")
+        merged_dis = im.resize_planes(merged_dis, (h, out_w), "linear")
     return blend.float(), merged_dis
+
+
+def prepare(image_l: torch.Tensor, image_r: torch.Tensor,
+            cfg: StitchConfig) -> StitchContext:
+    """Stitchtools::prepare (CPU/StitchTool.cpp:7-36)."""
+    canvas_map = match_images(image_l, image_r)
+    blend, merged_dis = generate_blend(canvas_map, cfg)
+    return StitchContext(canvas_map, extract_overlap(image_l, canvas_map),
+                         extract_overlap(image_r, canvas_map), blend,
+                         merged_dis)
 
 
 def gather_composite(ctx_map: torch.Tensor, image_l: torch.Tensor,
@@ -140,8 +165,10 @@ def gather_composite(ctx_map: torch.Tensor, image_l: torch.Tensor,
     ``gather_search_radius`` ray steps (L wins ties), else opaque black.
 
     ``window`` = (roll, width) runs the hole search on that column window
-    (bit-identical when crop.gather_window_safe holds)."""
-    h, w = ctx_map.shape
+    (bit-identical when crop.gather_window_safe holds).  Without a window
+    the arguments may be stacks with a leading N: the canvases are then
+    composited together, each as alone."""
+    h, w = ctx_map.shape[-2:]
     merged_a = im.threshold_binary(merged_middle[..., 3], 0, 75)
     code = ctx_map + merged_a
     r = cfg.gather_search_radius

@@ -116,23 +116,24 @@ def resize_planes(x: torch.Tensor, out_hw: tuple[int, int],
     return x
 
 
-def resize(img: torch.Tensor, out_hw: tuple[int, int],
-           method: str) -> torch.Tensor:
+def resize(img: torch.Tensor, out_hw: tuple[int, int], method: str,
+           row_axis: int = 0) -> torch.Tensor:
     """Separable resize of an (H, W) or (H, W, C) array to float32
-    (cv::resize INTER_LINEAR / INTER_CUBIC sampling, no anti-alias)."""
+    (cv::resize INTER_LINEAR / INTER_CUBIC sampling, no anti-alias).
+    ``row_axis=1`` resizes an (N, H, W, C) stack."""
     out_h, out_w = out_hw
     x = img.float()
-    if out_h != img.shape[0]:
-        x = _resize_axis(x, 0, out_h, method)
-    if out_w != img.shape[1]:
-        x = _resize_axis(x, 1, out_w, method)
+    if out_h != img.shape[row_axis]:
+        x = _resize_axis(x, row_axis, out_h, method)
+    if out_w != img.shape[row_axis + 1]:
+        x = _resize_axis(x, row_axis + 1, out_w, method)
     return x
 
 
-def resize_u8(img: torch.Tensor, out_hw: tuple[int, int],
-              method: str) -> torch.Tensor:
+def resize_u8(img: torch.Tensor, out_hw: tuple[int, int], method: str,
+              row_axis: int = 0) -> torch.Tensor:
     """Resize a uint8 image with OpenCV-style round+saturate."""
-    out = resize(img, out_hw, method)
+    out = resize(img, out_hw, method, row_axis)
     return torch.clamp(torch.round(out), 0, 255).to(torch.uint8)
 
 
@@ -232,14 +233,24 @@ def threshold_binary(src: torch.Tensor, thresh: float,
     return torch.where(src > thresh, hi, torch.zeros_like(hi))
 
 
-def wrap_extend_x(img: torch.Tensor, length: int) -> torch.Tensor:
-    """Periodic wrap-extension of axis 1 by ``length`` columns each side
-    (the equirectangular canvas wraps at 360 degrees)."""
+def saturating_add_u8(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """uint8 saturating add (cv::Mat operator+ semantics)."""
+    s = a.to(torch.int16) + b.to(torch.int16)
+    return torch.clamp(s, max=255).to(torch.uint8)
+
+
+def wrap_extend_x(img: torch.Tensor, length: int,
+                  axis: int = 1) -> torch.Tensor:
+    """Periodic wrap-extension of the column axis (1 of an (H, W[, C])
+    array; -2 also serves an (N, H, W, C) stack) by ``length`` columns
+    each side: the equirectangular canvas wraps at 360 degrees."""
     if length == 0:
         return img
-    return torch.cat([img[:, -length:], img, img[:, :length]], dim=1)
+    n = img.shape[axis]
+    return torch.cat([img.narrow(axis, n - length, length), img,
+                      img.narrow(axis, 0, length)], dim=axis)
 
 
-def crop_x(img: torch.Tensor, length: int) -> torch.Tensor:
+def crop_x(img: torch.Tensor, length: int, axis: int = 1) -> torch.Tensor:
     """Undo wrap_extend_x."""
-    return img[:, length:img.shape[1] - length]
+    return img.narrow(axis, length, img.shape[axis] - 2 * length)

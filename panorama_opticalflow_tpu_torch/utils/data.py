@@ -1,8 +1,9 @@
-"""Synthetic inputs and the SSIM gate metric, numpy only.
+"""Synthetic inputs and the quality metrics, numpy only.
 
 Copies of the JAX package's ``utils/io.synthesize_fisheye_set`` and
-``utils/metrics.ssim``, so that a run on the card imports nothing of that
-package; ``tests/test_torch_no_jax.py`` holds both equal to the
+``synthesize_four_input_set`` and of ``utils/metrics.ssim`` and
+``endpoint_error``, so that a run on the card imports nothing of that
+package; ``tests/test_torch_no_jax.py`` holds them equal to the
 originals.
 """
 
@@ -56,6 +57,21 @@ def synthesize_fisheye_set(
         top[rows, :, 3] = 255
         top[..., :3] *= (top[..., 3:] > 0)
     return photos, top
+
+
+def synthesize_four_input_set(h: int, w: int,
+                              seed: int = 0) -> list[np.ndarray]:
+    """4 wide-angle photos: 1/3 compose canvas L, 2/4 compose canvas R
+    (CPU_4Input/main.cpp:54-80); opposite cameras do not overlap."""
+    photos, _ = synthesize_fisheye_set(h, w, n=4, overlap_frac=0.3,
+                                       seed=seed, with_top=False)
+    return photos
+
+
+def endpoint_error(flow_a: np.ndarray, flow_b: np.ndarray) -> float:
+    """Mean Euclidean endpoint error between two (H, W, 2) flow fields."""
+    d = np.asarray(flow_a, np.float64) - np.asarray(flow_b, np.float64)
+    return float(np.sqrt((d ** 2).sum(-1)).mean())
 
 
 def ssim(a: np.ndarray, b: np.ndarray, data_range: float = 255.0) -> float:

@@ -7,14 +7,17 @@ codec of ``native/panoio.cpp`` (libpng/libtiff behind a plain C
 interface, bound with ``ctypes``) for PNG and TIFF, and PIL where the
 codec does not build or does not take the file.  The codec is built by
 ``native/build.sh`` on first use; nothing is built or loaded when this
-module is imported.
+module is imported.  ``PrefetchLoader`` decodes the next inputs on a
+background thread while the device stitches the current ones.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import queue
 import subprocess
+import threading
 
 import numpy as np
 
@@ -172,3 +175,32 @@ def write_image_fast(path: str, img: np.ndarray,
                 f.write(data)
         return
     write_image(path, img)
+
+
+class PrefetchLoader:
+    """Background-thread image loader: iterating yields (path, image) in
+    the order of ``paths``, at most ``depth`` decoded ahead; a failed read
+    is raised where its image would have been yielded."""
+
+    def __init__(self, paths: list[str], depth: int = 2):
+        self._paths = paths
+        self._q: queue.Queue = queue.Queue(maxsize=depth)
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        for p in self._paths:
+            try:
+                self._q.put((p, read_image_rgba_fast(p)))
+            except Exception as e:  # noqa: BLE001
+                self._q.put((p, e))
+        self._q.put((None, None))
+
+    def __iter__(self):
+        while True:
+            p, img = self._q.get()
+            if p is None:
+                return
+            if isinstance(img, Exception):
+                raise img
+            yield p, img

@@ -10,7 +10,10 @@ median5+diffuse 1e-5 (both kernels build with -fmad=false and keep the
 plain version's tap order); relax, fused and unfused, 1e-5 on all but
 < 1e-4 of the pixels, where a 1-ulp difference may flip a strict-<
 candidate take.  A stitch on the card against the same stitch on the CPU
-is held at the golden gate of tests/test_golden.py.
+is held at the golden gate of tests/test_golden.py, a batched stitch on
+the card too; against the card's own sequential stitch it is held at the
+gate of tests/test_batching.py (more than 0.98 of the bytes equal, 99.9th
+percentile of the absolute difference <= 8).
 """
 
 import os
@@ -21,8 +24,9 @@ import torch
 
 from panorama_opticalflow_tpu_torch import (StitchConfig,
                                             flow_params_by_name, ssim,
-                                            synthesize_fisheye_set, to_numpy,
-                                            to_torch)
+                                            synthesize_fisheye_set,
+                                            synthesize_four_input_set,
+                                            to_numpy, to_torch)
 from panorama_opticalflow_tpu_torch.models import pipeline
 from panorama_opticalflow_tpu_torch.ops import image as im
 from panorama_opticalflow_tpu_torch.ops import kernels as tk
@@ -270,3 +274,104 @@ def test_stitch_six_sched22_on_card_matches_cpu(cuda):
     assert ssim(out, ref) >= 0.995
     diff = np.abs(out.astype(np.int32) - ref.astype(np.int32))
     assert (diff > 8).mean() < 0.01
+
+
+# ---------------------------------------------------------------------------
+# batched stitching: a leading 16 directions (medians: 32 planes), and the
+# 4-input stitch
+# ---------------------------------------------------------------------------
+
+
+def test_fused_path_kernels_match_plain_with_a_leading_16(rng, cuda):
+    """The three kernels of the fused level at a ragged shape with the
+    leading batch of 8 pairs in flight: every direction against its plain
+    version, and equal to the same direction launched alone (a plane's
+    coefficient, mask and tile offsets are its own)."""
+    nb, h, w = 16, 77, 205
+    params = flow_params_by_name("pixflow_low")
+    img = to_torch(rng.standard_normal((nb, h, w, 2)).astype(np.float32),
+                   cuda)
+    flow = to_torch(np.stack([_smooth_flow(h, w) * (1 + 0.1 * b)
+                              for b in range(nb)]), cuda)
+    got = tk.warp_tiled(img, flow)
+    torch.cuda.synchronize()
+    assert (got - tk.warp_tiled_plain(img, flow)).abs().max().item() <= 2e-6
+    assert torch.equal(got[11], tk.warp_tiled(img[11:12].contiguous(),
+                                              flow[11:12].contiguous())[0])
+
+    x = to_torch(rng.standard_normal((2 * nb, h, w)).astype(np.float32),
+                 cuda)
+    c = to_torch(rng.random((nb, h, w)).astype(np.float32), cuda)
+    got = tk.median5_diffuse(x, c)
+    torch.cuda.synchronize()
+    assert (got - tk.median5_diffuse_plain(x, c)).abs().max().item() <= 1e-5
+    assert torch.equal(got[22:24], tk.median5_diffuse(
+        x[22:24].contiguous(), c[11:12].contiguous()))
+    assert torch.equal(tk.median5(x), tk.median5_plain(x))
+
+    planes = _relax_planes(rng, cuda, (nb, h, w), unfused=False)
+    got = torch.stack(tk.relax_phase(*planes, params, 3, 2))
+    torch.cuda.synchronize()
+    ref = torch.stack(tk.relax_phase_fused_plain(*planes, params, 3, 2))
+    diff = (got - ref).abs().amax(dim=0)
+    assert (diff > 1e-5).float().mean().item() < 1e-4
+    alone = torch.stack(tk.relax_phase(
+        *(p[11:12].contiguous() for p in planes), params, 3, 2))
+    assert torch.equal(got[:, 11:12], alone)
+
+
+def _golden_gate(out, ref):
+    np.testing.assert_array_equal(out[..., 3], ref[..., 3])
+    assert ssim(out, ref) >= 0.995
+    diff = np.abs(out.astype(np.int32) - ref.astype(np.int32))
+    assert (diff > 8).mean() < 0.01
+
+
+def test_stitch_four_on_card_meets_golden_gate(cuda):
+    photos = synthesize_four_input_set(96, 320, seed=1)
+    out = to_numpy(pipeline.stitch_four(
+        photos, StitchConfig(flow_alg="pixflow_low"), device=cuda))
+    golden = np.load(os.path.join(os.path.dirname(GOLDEN),
+                                  "four_96x320_s1.npz"))["output"]
+    _golden_gate(out, golden)
+
+
+def test_stitch_four_default_device_is_the_card(cuda):
+    photos = synthesize_four_input_set(48, 160, seed=1)
+    cfg = StitchConfig(flow_alg="pixflow_low_fast")
+    out = pipeline.stitch_four(photos, cfg)
+    assert out.is_cuda
+    out, inter = pipeline.stitch_pair_debug(photos[0], photos[1], cfg)
+    assert out.is_cuda and all(v.is_cuda for v in inter.values())
+    stack = np.stack(photos[:2])
+    assert pipeline.stitch_pairs(stack, stack[::-1].copy(), cfg).is_cuda
+
+
+def test_stitch_pairs_on_card_matches_cpu(cuda):
+    """Three pairs at 96 x 320 with every fast level on the kernels
+    (pallas_min_pixels=0): the batched stitch on the card launches each
+    kernel as often as one pair would and meets the batching gate against
+    the card's own sequential stitch.  Against the batched stitch on the
+    CPU it is held at the golden gate, like every stitch on the card
+    against the CPU: kernels and plain versions differ by flipped takes."""
+    cfg = with_flow_params(StitchConfig(flow_alg="pixflow_low_fast"),
+                           pallas_min_pixels=0)
+    pairs = [pipeline.compose_four(
+        [to_torch(p, "cpu") for p in synthesize_four_input_set(96, 320,
+                                                               seed=k)])
+        for k in (1, 2, 3)]
+    ls = torch.stack([p[0] for p in pairs])
+    rs = torch.stack([p[1] for p in pairs])
+    tk.reset_launch_counts()
+    one = to_numpy(pipeline.stitch_pair(ls[0].to(cuda), rs[0].to(cuda), cfg))
+    per_pair = {k.__name__: k.launches for k in tk.KERNELS}
+    assert per_pair["relax_phase"] == per_pair["median5_diffuse"] > 0
+    tk.reset_launch_counts()
+    out = to_numpy(pipeline.stitch_pairs(ls, rs, cfg, device=cuda))
+    assert {k.__name__: k.launches for k in tk.KERNELS} == per_pair
+    assert (out[0] == one).mean() > 0.98
+    diff = np.abs(out[0].astype(int) - one.astype(int))
+    assert np.percentile(diff, 99.9) <= 8
+    ref = to_numpy(pipeline.stitch_pairs(ls, rs, cfg, device="cpu"))
+    for got, want in zip(out, ref):
+        _golden_gate(got, want)

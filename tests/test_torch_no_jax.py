@@ -119,6 +119,13 @@ def test_data_copies_match_jax(rng):
         ref, ref_top = jio.synthesize_fisheye_set(*args)
         for g, r in zip(got + [got_top], ref + [ref_top]):
             np.testing.assert_array_equal(g, r)
+    for args in ((40, 96, 1), (33, 130, 6)):
+        for g, r in zip(tdata.synthesize_four_input_set(*args),
+                        jio.synthesize_four_input_set(*args), strict=True):
+            np.testing.assert_array_equal(g, r)
+    fa = rng.standard_normal((20, 30, 2)).astype(np.float32)
+    fb = fa + rng.standard_normal((20, 30, 2)).astype(np.float32) * 0.1
+    assert tdata.endpoint_error(fa, fb) == jmetrics.endpoint_error(fa, fb) > 0
     a = rng.integers(0, 256, (30, 40, 3)).astype(np.float64)
     b = np.clip(a + rng.normal(0, 9, a.shape), 0, 255)
     assert tdata.ssim(a, b) == jmetrics.ssim(a, b)

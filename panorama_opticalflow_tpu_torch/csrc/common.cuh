@@ -131,44 +131,57 @@ __device__ __forceinline__ void median5_run(const float* src, int ld,
   }
 }
 
-// Starts the copy of rows x COLS values of the plane src (h x w) into
-// shared memory (row stride COLS), from the window whose corner is at
+// Starts the copy of rows x cols values of the plane src (h x w) into
+// shared memory (row stride cols), from the window whose corner is at
 // (y_first, x_first): the edge-replicated input, indices clamped to the
 // plane where the window reaches beyond it.  The copies are asynchronous
 // (no register in between), so a thread has all of its loads in flight at
 // once; lanes run along a row.  The caller commits (__pipeline_commit),
 // waits (__pipeline_wait_prior) and synchronises.
+__device__ __forceinline__ void stage_clamped_async(float* dst,
+                                                    const float* src, int h,
+                                                    int w, int y_first,
+                                                    int x_first, int rows,
+                                                    int cols) {
+  const int n = rows * cols;
+  if (y_first >= 0 && y_first + rows <= h && x_first >= 0 &&
+      x_first + cols <= w) {  // a window inside the plane: nothing to clamp
+    const float* corner = src + (size_t)y_first * w + x_first;
+    for (int k = threadIdx.x; k < n; k += blockDim.x)
+      __pipeline_memcpy_async(dst + k, corner + (k / cols) * w + k % cols,
+                              sizeof(float));
+    return;
+  }
+  for (int k = threadIdx.x; k < n; k += blockDim.x) {
+    const int yy = clampi(y_first + k / cols, 0, h - 1);
+    const int xx = clampi(x_first + k % cols, 0, w - 1);
+    __pipeline_memcpy_async(dst + k, src + (size_t)yy * w + xx, sizeof(float));
+  }
+}
+
+// the same with a row stride known at compile time
 template <int COLS>
 __device__ __forceinline__ void stage_clamped_async(float* dst,
                                                     const float* src, int h,
                                                     int w, int y_first,
                                                     int x_first, int rows) {
-  const int n = rows * COLS;
-  if (y_first >= 0 && y_first + rows <= h && x_first >= 0 &&
-      x_first + COLS <= w) {  // a window inside the plane: nothing to clamp
-    const float* corner = src + (size_t)y_first * w + x_first;
-    for (int k = threadIdx.x; k < n; k += blockDim.x)
-      __pipeline_memcpy_async(dst + k, corner + (k / COLS) * w + k % COLS,
-                              sizeof(float));
-    return;
-  }
-  for (int k = threadIdx.x; k < n; k += blockDim.x) {
-    const int yy = clampi(y_first + k / COLS, 0, h - 1);
-    const int xx = clampi(x_first + k % COLS, 0, w - 1);
-    __pipeline_memcpy_async(dst + k, src + (size_t)yy * w + xx, sizeof(float));
-  }
+  stage_clamped_async(dst, src, h, w, y_first, x_first, rows, COLS);
 }
 
 // 1-D Gaussian taps passed by value (kernel parameter space); a loop
-// unrolled over a static tap count reads them as constant operands
+// unrolled over a static tap count reads them as constant operands.  At
+// most MAX_TAPS taps: more than any blur whose window fits a block's
+// shared memory.
+constexpr int MAX_TAPS = 80;
+
 struct Taps {
-  float v[32];
+  float v[MAX_TAPS];
   int n;
 };
 
 inline Taps make_taps(const float* host, int n) {
   Taps t{};
-  for (int i = 0; i < n && i < 32; ++i) t.v[i] = host[i];
+  for (int i = 0; i < n && i < MAX_TAPS; ++i) t.v[i] = host[i];
   t.n = n;
   return t;
 }

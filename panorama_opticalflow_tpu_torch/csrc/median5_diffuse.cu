@@ -51,31 +51,38 @@ constexpr int BLOCKS_PER_SM = 2;         // by shared memory
 constexpr int MRUN = pano::MEDIAN_RUN;  // medians a thread and step
 constexpr int RUN = 4;                   // blur outputs a thread and step
 
-constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
+__host__ __device__ constexpr int round_up(int v, int m) {
+  return (v + m - 1) / m * m;
+}
 
-// shared-memory geometry for a blur of KS taps (radius KS / 2)
-template <int KS>
+// shared-memory geometry for a blur of ks taps (radius ks / 2)
 struct Geo {
-  static constexpr int GR = KS / 2;
-  static constexpr int MH = MTH + 2 * GR;            // median field rows
-  static constexpr int MLD = round_up(MTW + 2 * GR, MRUN);  // its row stride
-  static constexpr int XH = MH + 4, XLD = MLD + 4;   // input window
-  static constexpr int LOADS = (RUN + 2 * GR + 3) / 4;  // float4 an x-blur run
-  static constexpr size_t SMEM =
-      (size_t)(XH * XLD + MH * MLD) * sizeof(float);
-  static_assert(MH * MTW <= XH * XLD, "the x pass fits the input window");
+  int gr, mh, mld, xh, xld;
+  __host__ __device__ constexpr explicit Geo(int ks)
+      : gr(ks / 2),
+        mh(MTH + 2 * (ks / 2)),                      // median field rows
+        mld(round_up(MTW + 2 * (ks / 2), MRUN)),     // its row stride
+        xh(MTH + 2 * (ks / 2) + 4),                  // input window
+        xld(round_up(MTW + 2 * (ks / 2), MRUN) + 4) {}
+  __host__ __device__ constexpr size_t smem() const {
+    return (size_t)(xh * xld + mh * mld) * sizeof(float);
+  }
 };
 
-// VEC: every row of the planes starts on a 16-byte boundary
+// KS > 0: a kernel built for KS taps, its blurs unrolled; KS == 0: the
+// tap count of ``taps`` at run time, the same sums in the same order.
+// VEC: every row of the planes starts on a 16-byte boundary.
 template <int KS, bool VEC>
 __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
 median5_diffuse_kernel(const float* __restrict__ x, const float* __restrict__ cf,
                        float* __restrict__ out, int h, int w, pano::Taps taps) {
-  using G = Geo<KS>;
-  constexpr int GR = G::GR;
+  constexpr Geo GC(KS ? KS : 1);
+  const Geo G = KS ? GC : Geo(taps.n);
+  const int nt = KS ? KS : taps.n;
+  const int GR = G.gr;
   extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);  // XH x XLD, later MH x MTW
-  float* med = xs + G::XH * G::XLD;             // MH x MLD
+  float* xs = reinterpret_cast<float*>(smem4);  // xh x xld, later mh x MTW
+  float* med = xs + G.xh * G.xld;               // mh x mld
 
   const int x0 = blockIdx.x * MTW, y0 = blockIdx.y * MTH;
   const int p = blockIdx.z;
@@ -85,8 +92,8 @@ median5_diffuse_kernel(const float* __restrict__ x, const float* __restrict__ cf
   const int mruns = (tw + 2 * GR + MRUN - 1) / MRUN;  // median runs a row
   const int oruns = (tw + RUN - 1) / RUN;              // output runs a row
 
-  pano::stage_clamped_async<G::XLD>(xs, x + p * hw, h, w, y0 - GR - 2,
-                                    x0 - GR - 2, mh + 4);
+  pano::stage_clamped_async(xs, x + p * hw, h, w, y0 - GR - 2, x0 - GR - 2,
+                            mh + 4, G.xld);
   __pipeline_commit();
   __pipeline_wait_prior(0);
   __syncthreads();
@@ -94,33 +101,46 @@ median5_diffuse_kernel(const float* __restrict__ x, const float* __restrict__ cf
   for (int k = threadIdx.x; k < mh * mruns; k += blockDim.x) {
     const int r = k / mruns, q = (k - r * mruns) * MRUN;
     float m[MRUN];
-    pano::median5_run(xs + r * G::XLD + q, G::XLD, m);
+    pano::median5_run(xs + r * G.xld + q, G.xld, m);
 #pragma unroll
     for (int i = 0; i < MRUN; i += 4)
-      *reinterpret_cast<float4*>(med + r * G::MLD + q + i) =
+      *reinterpret_cast<float4*>(med + r * G.mld + q + i) =
           make_float4(m[i], m[i + 1], m[i + 2], m[i + 3]);
   }
   __syncthreads();
 
   // x pass: accx[r][q + m] = sum_t taps[t] * med[r][q + m + t]; the
   // columns beyond the medians computed above feed no output
-  float* accx = xs;  // MH x MTW
+  float* accx = xs;  // mh x MTW
   for (int k = threadIdx.x; k < mh * oruns; k += blockDim.x) {
     const int r = k / oruns, q = (k - r * oruns) * RUN;
-    float v[4 * G::LOADS];
-#pragma unroll
-    for (int i = 0; i < G::LOADS; ++i) {
-      const float4 a =
-          *reinterpret_cast<const float4*>(med + r * G::MLD + q + 4 * i);
-      v[4 * i] = a.x, v[4 * i + 1] = a.y, v[4 * i + 2] = a.z,
-            v[4 * i + 3] = a.w;
-    }
     float acc[RUN];
+    if (KS) {
+      constexpr int LOADS = (RUN + 2 * (KS / 2) + 3) / 4;  // float4 a run
+      float v[4 * LOADS];
 #pragma unroll
-    for (int m = 0; m < RUN; ++m) {
-      acc[m] = 0.f;
+      for (int i = 0; i < LOADS; ++i) {
+        const float4 a =
+            *reinterpret_cast<const float4*>(med + r * G.mld + q + 4 * i);
+        v[4 * i] = a.x, v[4 * i + 1] = a.y, v[4 * i + 2] = a.z,
+              v[4 * i + 3] = a.w;
+      }
 #pragma unroll
-      for (int i = 0; i < KS; ++i) acc[m] = acc[m] + taps.v[i] * v[m + i];
+      for (int m = 0; m < RUN; ++m) {
+        acc[m] = 0.f;
+#pragma unroll
+        for (int i = 0; i < KS; ++i) acc[m] = acc[m] + taps.v[i] * v[m + i];
+      }
+    } else {
+      // the outputs of the tile only: a read past the last one could
+      // leave the median field
+#pragma unroll
+      for (int m = 0; m < RUN; ++m) {
+        acc[m] = 0.f;
+        if (q + m >= tw) continue;
+        const float* row = med + r * G.mld + q + m;
+        for (int i = 0; i < nt; ++i) acc[m] = acc[m] + taps.v[i] * row[i];
+      }
     }
     *reinterpret_cast<float4*>(accx + r * MTW + q) =
         make_float4(acc[0], acc[1], acc[2], acc[3]);
@@ -132,16 +152,21 @@ median5_diffuse_kernel(const float* __restrict__ x, const float* __restrict__ cf
   for (int k = threadIdx.x; k < th * oruns; k += blockDim.x) {
     const int yq = k / oruns, q = (k - yq * oruns) * RUN;
     float blur[RUN] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < KS; ++i) {
+    auto tap = [&](int i) {
       const float4 a =
           *reinterpret_cast<const float4*>(accx + (yq + i) * MTW + q);
       blur[0] = blur[0] + taps.v[i] * a.x;
       blur[1] = blur[1] + taps.v[i] * a.y;
       blur[2] = blur[2] + taps.v[i] * a.z;
       blur[3] = blur[3] + taps.v[i] * a.w;
+    };
+    if (KS) {
+#pragma unroll
+      for (int i = 0; i < KS; ++i) tap(i);
+    } else {
+      for (int i = 0; i < nt; ++i) tap(i);
     }
-    const float* mc = med + (yq + GR) * G::MLD + q + GR;
+    const float* mc = med + (yq + GR) * G.mld + q + GR;
     const size_t at = (size_t)(y0 + yq) * w + x0 + q;
     if (VEC) {
       const float4 cv = *reinterpret_cast<const float4*>(coef + at);
@@ -166,24 +191,33 @@ int launch(const float* x, const float* c, float* out, int planes, int h,
            int w, const pano::Taps& taps, bool vec, cudaStream_t stream) {
   auto kernel = vec ? median5_diffuse_kernel<KS, true>
                     : median5_diffuse_kernel<KS, false>;
+  const size_t smem = Geo(KS ? KS : taps.n).smem();
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)Geo<KS>::SMEM);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((w + MTW - 1) / MTW, (h + MTH - 1) / MTH, planes);
-  kernel<<<grid, THREADS, Geo<KS>::SMEM, stream>>>(x, c, out, h, w, taps);
+  kernel<<<grid, THREADS, smem, stream>>>(x, c, out, h, w, taps);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Kernels are built for the odd tap counts 3 to 15 (15 is the width of
-// every preset); any other ksize is refused.
+// Shared-memory bytes a block needs for a blur of ksize taps; -1 beyond
+// the taps a launch can pass.
+extern "C" long long pano_median5_diffuse_smem(int ksize) {
+  if (ksize < 1 || ksize > pano::MAX_TAPS) return -1;
+  return (long long)Geo(ksize).smem();
+}
+
+// Kernels are unrolled for the odd tap counts 3 to 15 (15 is the width of
+// every preset); any other ksize up to MAX_TAPS runs the kernel that takes
+// its tap count at run time, where its window fits a block's shared memory.
 extern "C" int pano_median5_diffuse(const float* x, const float* c, float* out,
                                     int planes, int h, int w,
                                     const float* taps_host, int ksize,
                                     void* stream) {
-  if (planes < 2 || planes % 2 != 0 || h < 1 || w < 1)
+  if (planes < 2 || planes % 2 != 0 || h < 1 || w < 1 || ksize < 1 ||
+      ksize > pano::MAX_TAPS)
     return (int)cudaErrorInvalidValue;
   const pano::Taps taps = pano::make_taps(taps_host, ksize);
   const bool vec = w % 4 == 0 && reinterpret_cast<uintptr_t>(c) % 16 == 0 &&
@@ -197,6 +231,6 @@ extern "C" int pano_median5_diffuse(const float* x, const float* c, float* out,
     case 11: return launch<11>(x, c, out, planes, h, w, taps, vec, s);
     case 13: return launch<13>(x, c, out, planes, h, w, taps, vec, s);
     case 15: return launch<15>(x, c, out, planes, h, w, taps, vec, s);
-    default: return (int)cudaErrorInvalidValue;
+    default: return launch<0>(x, c, out, planes, h, w, taps, vec, s);
   }
 }

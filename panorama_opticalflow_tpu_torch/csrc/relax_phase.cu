@@ -64,9 +64,13 @@
 //     long).  The tile is the tallest whose window fits PIX * THREADS
 //     owned pixels and the 227 KB of a block: 44 x 64 at K <= 3, D = 2,
 //     so 69 % of the window is output.  Windows are built for K = 3, 5 and
-//     7; a K in between runs in the next larger one, which changes no
-//     output bit.  A window of fewer than 24 tile rows is refused: the
-//     wrapper raises with the bytes it would need.
+//     7 at D = 1, 2 and 3; a K in between runs in the next larger one,
+//     which changes no output bit.  Any other K and D run one more instance
+//     that reads its window's geometry at run time (the same code, with
+//     run-time divisions): the tallest window that fits, down to 8 tile
+//     rows.  A window that does not fit a block's shared memory or its
+//     threads' pixels is refused: the wrapper raises with the bytes it
+//     would need and the largest K that fits (14 at D = 2 on an H100).
 #include <cuda_bf16.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -78,13 +82,18 @@ namespace {
 constexpr int RTW = 64;
 constexpr int THREADS = 1024;
 constexpr int PIX = 4;         // window pixels a thread owns
-constexpr int MIN_ROWS = 24;   // fewest tile rows of a window
+constexpr int MIN_ROWS = 8;    // fewest tile rows of a window
 constexpr int BLUR_TAPS = 15;  // the presets' target blur, unrolled
 constexpr size_t SMEM_MAX = 227 * 1024;  // of one block on sm_90
 
-// the iteration count a window is built for: 3, 5 or 7 (beyond 7 none is)
-constexpr int built_iters(int iters) {
-  return iters <= 3 ? 3 : iters <= 5 ? 5 : iters <= 7 ? 7 : iters;
+// the iteration count an unrolled window is built for: 3, 5 or 7
+__host__ __device__ constexpr int built_iters(int iters) {
+  return iters <= 3 ? 3 : iters <= 5 ? 5 : 7;
+}
+
+// D and K that run an unrolled instance; others run the run-time one
+__host__ __device__ constexpr bool unrolled(int D, int iters) {
+  return D >= 1 && D <= 3 && iters <= 7;
 }
 
 // Window of a block that runs up to KB iterations: the tile plus a halo of
@@ -117,6 +126,7 @@ __host__ __device__ constexpr Window make_window(int D, int kb) {
 struct Scalars {
   float lim, smooth, step, vreg_w, hreg_w;
   int fold, w1_bf16, fuse_bf, iters;
+  int d, kb;  // the run-time instance's D and window iterations
 };
 
 struct Planes {
@@ -136,11 +146,10 @@ __device__ __forceinline__ void stage(float2* a, const float* gx,
 // and, for a pixel of the window's first or last row, on the rows that
 // edge-extend its offset down to -(D+1) and up to THE+D.  With DERIV also
 // Xd, the same sum with dhat weights, from the same two taps.
-template <int D, int KB, bool DERIV>
-__device__ __forceinline__ void x_pass(float dx, int r, int c,
-                                       const float2* W1, float2* X,
-                                       float2* Xd) {
-  constexpr Window G = make_window(D, KB);
+template <bool DERIV>
+__device__ __forceinline__ void x_pass(const Window& G, int D, float dx,
+                                       int r, int c, const float2* W1,
+                                       float2* X, float2* Xd) {
   const float fl = floorf(dx);
   const float t0 = dx - fl, t1 = dx - (fl + 1.f);
   const float h0 = pano::hat(t0), h1 = pano::hat(t1);
@@ -158,10 +167,9 @@ __device__ __forceinline__ void x_pass(float dx, int r, int c,
 
 // sum_oy hat(d - oy) * X[r + oy][c], r in window coordinates (the caller
 // adds a neighbour's row offset)
-template <int D, int KB>
-__device__ __forceinline__ float2 y_sum(const float2* X, float d, int r,
+__device__ __forceinline__ float2 y_sum(const Window& G, int D,
+                                        const float2* X, float d, int r,
                                         int c) {
-  constexpr Window G = make_window(D, KB);
   const float fl = floorf(d);
   const float2* q = X + (r + (int)fl + D + 1) * G.twe + c;
   return pano::tap2(pano::hat(d - fl), q[0], pano::hat(d - (fl + 1.f)),
@@ -194,13 +202,18 @@ __device__ __forceinline__ float err(const Scalars& s, float2 sv, float2 cf,
          s.hreg_w * fabsf(cf.x);
 }
 
-template <int D, int KB>
+// D > 0: the window built for D and KB iterations; D == 0: the window of
+// s.d and s.kb, made at run time
+template <int D_, int KB>
 __global__ void __launch_bounds__(THREADS, 1)
 relax_phase_kernel(Planes p, Scalars s, pano::Taps taps, int h, int w) {
-  constexpr Window G = make_window(D, KB);
-  constexpr int THE = G.the, TWE = G.twe, A = G.pixels();
-  constexpr int RTH = THE - 2 * G.hy;
-  static_assert(A <= PIX * THREADS, "a thread owns at most PIX pixels");
+  constexpr Window GC = make_window(D_ ? D_ : 1, D_ ? KB : 1);
+  static_assert(!D_ || GC.pixels() <= PIX * THREADS,
+                "a thread owns at most PIX pixels");
+  const Window G = D_ ? GC : make_window(s.d, s.kb);
+  const int D = D_ ? D_ : s.d;
+  const int THE = G.the, TWE = G.twe, A = G.pixels();
+  const int RTH = THE - 2 * G.hy;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float2* f = reinterpret_cast<float2*>(smem_raw);  // A   flow state
   float2* i0 = f + A;                               // A   (i0x, i0y)
@@ -290,9 +303,8 @@ relax_phase_kernel(Planes p, Scalars s, pano::Taps taps, int h, int w) {
     for (int j = 0; j < PIX; ++j) {
       const int k = tid + j * THREADS;
       if (k < A)
-        x_pass<D, KB, false>(
-            pano::clampf(f[k].x - b[j].x, -s.lim, s.lim), k / TWE, k % TWE,
-            W1, X, Xd);
+        x_pass<false>(G, D, pano::clampf(f[k].x - b[j].x, -s.lim, s.lim),
+                      k / TWE, k % TWE, W1, X, Xd);
     }
     __syncthreads();
 #pragma unroll
@@ -302,7 +314,7 @@ relax_phase_kernel(Planes p, Scalars s, pano::Taps taps, int h, int w) {
         const int r = k / TWE, c = k % TWE;
         const float2 iv = i0[k], tv = bf[k];
         float2 bfv = f[k];
-        float2 sv = y_sum<D, KB>(X, dyc[k], r, c);
+        float2 sv = y_sum(G, D, X, dyc[k], r, c);
         float be = err(s, sv, bfv, iv, tv);
         // candidates: from left, up, right, down; each is the neighbour's
         // flow with the neighbour's own sample map at the +-1 offset, which
@@ -316,7 +328,7 @@ relax_phase_kernel(Planes p, Scalars s, pano::Taps taps, int h, int w) {
           const int n = nr[q] * TWE + nc[q];
           const float2 cf = f[n];
           const float2 cs =
-              y_sum<D, KB>(X, dyc[n], nr[q] + ro[q], nc[q] + co[q]);
+              y_sum(G, D, X, dyc[n], nr[q] + ro[q], nc[q] + co[q]);
           const float e = err(s, cs, cf, iv, tv);
           if (e < be) {
             be = e;
@@ -335,9 +347,8 @@ relax_phase_kernel(Planes p, Scalars s, pano::Taps taps, int h, int w) {
     for (int j = 0; j < PIX; ++j) {
       const int k = tid + j * THREADS;
       if (k < A)
-        x_pass<D, KB, true>(
-            pano::clampf(bestf[j].x - b[j].x, -s.lim, s.lim), k / TWE,
-            k % TWE, W1, X, Xd);
+        x_pass<true>(G, D, pano::clampf(bestf[j].x - b[j].x, -s.lim, s.lim),
+                     k / TWE, k % TWE, W1, X, Xd);
     }
     __syncthreads();
 #pragma unroll
@@ -414,58 +425,71 @@ bool blur_fits(const Window& g, int ksize) {
              2 * (size_t)g.nx() + g.nw();
 }
 
+// a window the kernel can run: it fits a block's shared memory and the
+// pixels its threads own, and it has an output row
+bool fits(const Window& g) {
+  return g.bytes() <= SMEM_MAX && g.pixels() <= PIX * THREADS &&
+         g.the > 2 * g.hy;
+}
+
+// the window a launch at D and iters uses
+Window window_for(int D, int iters) {
+  return make_window(D, unrolled(D, iters) ? built_iters(iters) : iters);
+}
+
 template <int D, int KB>
-int launch(const Planes& p, const Scalars& s, const pano::Taps& taps, int nb,
-           int h, int w, cudaStream_t stream) {
-  constexpr Window G = make_window(D, KB);
-  if constexpr (G.bytes() <= SMEM_MAX) {
-    cudaError_t err = cudaFuncSetAttribute(
-        relax_phase_kernel<D, KB>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)G.bytes());
-    if (err != cudaSuccess) return (int)err;
-    constexpr int rth = G.the - 2 * G.hy;
-    dim3 grid((w + RTW - 1) / RTW, (h + rth - 1) / rth, nb);
-    relax_phase_kernel<D, KB><<<grid, THREADS, G.bytes(), stream>>>(
-        p, s, taps, h, w);
-    return (int)cudaGetLastError();
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+int launch(const Planes& p, Scalars s, const pano::Taps& taps, int nb, int h,
+           int w, const Window& g, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      relax_phase_kernel<D, KB>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)g.bytes());
+  if (err != cudaSuccess) return (int)err;
+  const int rth = g.the - 2 * g.hy;
+  dim3 grid((w + RTW - 1) / RTW, (h + rth - 1) / rth, nb);
+  relax_phase_kernel<D, KB><<<grid, THREADS, g.bytes(), stream>>>(
+      p, s, taps, h, w);
+  return (int)cudaGetLastError();
 }
 
 template <int D>
 int launch_built(const Planes& p, const Scalars& s, const pano::Taps& taps,
-                 int nb, int h, int w, cudaStream_t st) {
+                 int nb, int h, int w, const Window& g, cudaStream_t st) {
   switch (built_iters(s.iters)) {
-    case 3: return launch<D, 3>(p, s, taps, nb, h, w, st);
-    case 5: return launch<D, 5>(p, s, taps, nb, h, w, st);
-    case 7: return launch<D, 7>(p, s, taps, nb, h, w, st);
-    default: return (int)cudaErrorInvalidValue;
+    case 3: return launch<D, 3>(p, s, taps, nb, h, w, g, st);
+    case 5: return launch<D, 5>(p, s, taps, nb, h, w, g, st);
+    default: return launch<D, 7>(p, s, taps, nb, h, w, g, st);
   }
 }
 
-int dispatch(const Planes& p, const Scalars& s, const pano::Taps& taps,
-             int nb, int h, int w, int D, int ksize, cudaStream_t st) {
-  if (s.iters < 1 || D < 1 || D > 3 ||
-      (s.fuse_bf && !blur_fits(make_window(D, built_iters(s.iters)), ksize)))
+int dispatch(const Planes& p, Scalars s, const pano::Taps& taps, int nb,
+             int h, int w, int D, int ksize, cudaStream_t st) {
+  if (s.iters < 1 || D < 1) return (int)cudaErrorInvalidValue;
+  const Window g = window_for(D, s.iters);
+  if (!fits(g) || (s.fuse_bf && !blur_fits(g, ksize)))
     return (int)cudaErrorInvalidValue;
+  if (!unrolled(D, s.iters)) {
+    s.d = D;
+    s.kb = s.iters;
+    return launch<0, 0>(p, s, taps, nb, h, w, g, st);
+  }
   switch (D) {
-    case 1: return launch_built<1>(p, s, taps, nb, h, w, st);
-    case 2: return launch_built<2>(p, s, taps, nb, h, w, st);
-    default: return launch_built<3>(p, s, taps, nb, h, w, st);
+    case 1: return launch_built<1>(p, s, taps, nb, h, w, g, st);
+    case 2: return launch_built<2>(p, s, taps, nb, h, w, g, st);
+    default: return launch_built<3>(p, s, taps, nb, h, w, g, st);
   }
 }
 
 }  // namespace
 
-// Shared-memory bytes a block of the relax kernel needs for the wrapper's
-// error message: 0 when the fused variant's blur scratch does not fit the
-// buffers it borrows, -1 when the window would fit but no kernel is built
-// for so many iterations.
+// Shared-memory bytes a block of the relax kernel needs at iters and D, for
+// the wrapper's checks: -1 when the window holds more pixels than a
+// block's threads own or no output row, 0 when the fused variant's blur
+// scratch does not fit the buffers it borrows.
 extern "C" long long pano_relax_smem(int iters, int D, int ksize,
                                      int fuse_bf) {
-  const Window g = make_window(D, built_iters(iters));
-  if (g.bytes() <= SMEM_MAX && iters > 7) return -1;
+  if (iters < 1 || D < 1) return -1;
+  const Window g = window_for(D, iters);
+  if (g.pixels() > PIX * THREADS || g.the <= 2 * g.hy) return -1;
   if (g.bytes() <= SMEM_MAX && fuse_bf && !blur_fits(g, ksize)) return 0;
   return (long long)g.bytes();
 }
@@ -479,8 +503,7 @@ extern "C" int pano_relax_phase_fused(
     int iters, int D, const float* taps_host, int ksize, float lim,
     float smooth, float step, float vreg_w, float hreg_w, int fold,
     int w1_bf16, void* stream) {
-  if (ksize < 1 || ksize > 31 || ksize % 2 == 0)
-    return (int)cudaErrorInvalidValue;
+  if (ksize < 1 || ksize > pano::MAX_TAPS) return (int)cudaErrorInvalidValue;
   const Planes p{fx,  fy,   bx,      by,      w1x, w1y, i0x,
                  i0y, mask, nullptr, nullptr, ofx, ofy};
   const Scalars s{lim, smooth, step, vreg_w, hreg_w, fold, w1_bf16, 1, iters};

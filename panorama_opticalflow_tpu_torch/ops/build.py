@@ -49,6 +49,7 @@ _SIGNATURES = {
                                  + [_i, _i, _p], _i),
     "pano_relax_smem": ([_i] * 4, _ll),
     "pano_smem_limit": ([], _ll),
+    "pano_median5_diffuse_smem": ([_i], _ll),
 }
 
 
@@ -99,10 +100,13 @@ def build(csrc: str = CSRC) -> str:
 
 
 def open_library(csrc: str = CSRC) -> ctypes.CDLL:
-    """Build the sources of ``csrc`` and bind their C interface."""
+    """Build the sources of ``csrc`` and bind their C interface (an earlier
+    commit's sources may lack a function added since; it stays unbound)."""
     lib = ctypes.CDLL(build(csrc))
     for name, (argtypes, restype) in _SIGNATURES.items():
-        fn = getattr(lib, name)
+        fn = getattr(lib, name, None)
+        if fn is None:
+            continue
         fn.argtypes = argtypes
         fn.restype = restype
     return lib

@@ -73,20 +73,53 @@ def _unshear_by_row(a: torch.Tensor, w: int) -> torch.Tensor:
     return flat.reshape(lead + (h, wc + 1))[..., :w]
 
 
-def _shear(mask: torch.Tensor, sign: int) -> torch.Tensor:
+def _roll_x(a: torch.Tensor, shift) -> torch.Tensor:
+    """``torch.roll`` along the last dim; ``shift`` is an int, or a 1-D
+    integer tensor on ``a``'s device with one shift for each entry of the
+    leading dim."""
+    if isinstance(shift, int):
+        return torch.roll(a, shift, dims=-1) if shift else a
+    wc = a.shape[-1]
+    s = shift.view((-1,) + (1,) * (a.dim() - 1))
+    idx = (torch.arange(wc, device=a.device) - s) % wc
+    return torch.gather(a, -1, idx.expand(a.shape))
+
+
+def _shifts(h: int, sign: int, row_offset, total_h: int):
+    """The column shift a shear adds on top of its reshape, from the global
+    row offset of local row 0 (an int, or a tensor of one a leading
+    entry)."""
+    return total_h - h - row_offset if sign > 0 else row_offset
+
+
+def _shear(mask: torch.Tensor, sign: int, row_offset=0,
+           total_h: int | None = None) -> torch.Tensor:
     """Reindex so diagonals become columns.  sign=+1 conserves x - y (the
-    (+1,+1)/(-1,-1) diagonals), sign=-1 conserves x + y."""
+    (+1,+1)/(-1,-1) diagonals), sign=-1 conserves x + y:
+    out[y, x - (y + off) + (TH - 1)] = mask[y, x] for sign=+1,
+    out[y, x + (y + off)] = mask[y, x] for sign=-1.  Row tiles pass the
+    global row offset ``row_offset`` of their local row 0 (an int, or a
+    1-D tensor of one for each entry of a leading tile dim) and the global
+    height ``total_h``; a diagonal is then the same column in every
+    tile."""
     h, w = mask.shape[-2:]
-    wc = w + h - 1
+    th = h if total_h is None else total_h
+    wc = w + th - 1
+    shift = _shifts(h, sign, row_offset, th)
     if sign > 0:
-        return _shear_by_row(mask.flip(-2), wc).flip(-2)
-    return _shear_by_row(mask, wc)
+        return _roll_x(_shear_by_row(mask.flip(-2), wc), shift).flip(-2)
+    return _roll_x(_shear_by_row(mask, wc), shift)
 
 
-def _unshear(arr: torch.Tensor, sign: int, w: int) -> torch.Tensor:
+def _unshear(arr: torch.Tensor, sign: int, w: int, row_offset=0,
+             total_h: int | None = None) -> torch.Tensor:
+    """Inverse of ``_shear`` to width ``w``."""
+    h = arr.shape[-2]
+    th = h if total_h is None else total_h
+    neg = -_shifts(h, sign, row_offset, th)
     if sign > 0:
-        return _unshear_by_row(arr.flip(-2), w).flip(-2)
-    return _unshear_by_row(arr, w)
+        return _unshear_by_row(_roll_x(arr.flip(-2), neg), w).flip(-2)
+    return _unshear_by_row(_roll_x(arr, neg), w)
 
 
 def _without_first(mask: torch.Tensor, col: bool, row: bool) -> torch.Tensor:
@@ -185,21 +218,29 @@ _I16_INF = 32000  # sentinel; adds stay < int16 max
 
 
 def two_class_hole_search(mask_l: torch.Tensor, mask_r: torch.Tensor,
-                          radius: int) -> tuple[torch.Tensor, torch.Tensor]:
+                          radius: int,
+                          row0_excluded: torch.Tensor | None = None
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
     """Gather's hole search for both classes in one int16 doubling field:
     v = 2*d + (class == R), so min() orders by distance with L winning
     ties (CPU/StitchTool.cpp:77-94).  Rays are bounded by ``radius``
     unit steps and stop at the array edge.  Masks are (H, W), or
-    (N, H, W) for N canvases searched together.  Returns (found,
-    take_l)."""
+    (N, H, W) for N canvases searched together.  ``row0_excluded`` marks
+    the pixels of the canvas's row 0, invisible to -y rays; by default
+    the array's row 0 (row tiles pass where global row 0 lies).  Returns
+    (found, take_l)."""
     inf = torch.full(mask_l.shape, _I16_INF, dtype=torch.int16,
                      device=mask_l.device)
     v0 = torch.where(mask_l, torch.zeros_like(inf),
                      torch.where(mask_r, torch.ones_like(inf), inf))
     either = mask_l | mask_r
+    if row0_excluded is None:
+        no_row0 = _without_first(either, False, True)
+    else:
+        no_row0 = either & ~row0_excluded
     v_nc0 = torch.where(_without_first(either, True, False), v0, inf)
-    v_nr0 = torch.where(_without_first(either, False, True), v0, inf)
-    v_nb = torch.where(_without_first(either, True, True), v0, inf)
+    v_nr0 = torch.where(no_row0, v0, inf)
+    v_nb = torch.where(_without_first(no_row0, True, False), v0, inf)
 
     def ray(v, dy, dx):
         d = v

@@ -89,18 +89,27 @@ def _resize_axis_plan(in_size: int, out_size: int, method: str):
     return idx, w.astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _resize_axis_taps(in_size: int, out_size: int, method: str,
+                      device: str):
+    """The plan's (K, out) indices and weights on ``device``, made once:
+    a copy from host memory waits for the card's stream to drain."""
+    idx, w = _resize_axis_plan(in_size, out_size, method)
+    return (torch.from_numpy(np.ascontiguousarray(idx.T)).to(device),
+            torch.from_numpy(np.ascontiguousarray(w.T)).to(device))
+
+
 def _resize_axis(x: torch.Tensor, axis: int, out_size: int,
                  method: str) -> torch.Tensor:
     axis = axis % x.dim()
-    idx, w = _resize_axis_plan(x.shape[axis], out_size, method)
+    idx, w = _resize_axis_taps(x.shape[axis], out_size, method,
+                               str(x.device))
     wshape = [1] * x.dim()
     wshape[axis] = out_size
     acc = None
-    for m in range(idx.shape[1]):
-        g = x.index_select(axis, torch.from_numpy(idx[:, m]).to(x.device))
-        wm = torch.from_numpy(np.ascontiguousarray(w[:, m])).to(
-            x.device).view(wshape)
-        acc = g * wm if acc is None else acc + g * wm
+    for ix, wm in zip(idx, w):
+        g = x.index_select(axis, ix) * wm.view(wshape)
+        acc = g if acc is None else acc + g
     return acc
 
 
@@ -197,7 +206,11 @@ def median5(x: torch.Tensor) -> torch.Tensor:
 
 def box_blur(x: torch.Tensor, ksize_w: int, ksize_h: int) -> torch.Tensor:
     """cv::blur, BORDER_REFLECT_101, OpenCV's anchor (window
-    [i - k//2, i + k - 1 - k//2]); prefix-sum formulation."""
+    [i - k//2, i + k - 1 - k//2]); prefix-sum formulation.
+
+    The running sums are taken one (H, W) plane at a time: on the card
+    ``torch.cumsum`` orders its additions by the shape it is given, so a
+    plane of a stack would not get the bits it gets alone."""
     def along(v: torch.Tensor, k: int, axis: int) -> torch.Tensor:
         if k <= 1:
             return v
@@ -207,8 +220,14 @@ def box_blur(x: torch.Tensor, ksize_w: int, ksize_h: int) -> torch.Tensor:
         n = v.shape[axis]
         return (cs.narrow(axis, k, n) - cs.narrow(axis, 0, n)) / float(k)
 
-    v = along(x.float(), ksize_h, -2)
-    return along(v, ksize_w, -1)
+    def plane(v: torch.Tensor) -> torch.Tensor:
+        return along(along(v, ksize_h, -2), ksize_w, -1)
+
+    x = x.float()
+    if x.dim() == 2:
+        return plane(x)
+    flat = x.reshape((-1,) + x.shape[-2:])
+    return torch.stack([plane(v) for v in flat]).reshape(x.shape)
 
 
 # ---------------------------------------------------------------------------

@@ -13,7 +13,12 @@ wrapper                    replaces (reference Pallas kernel)      plain version
 =========================  ======================================  ============================
 
 A wrapper checks its inputs and raises on anything the kernel does not
-take.  For tensors on the CPU it runs the plain version; for CUDA tensors
+take.  The plain versions take every iteration count, hat window and blur
+width the reference's kernels take; the CUDA kernels take every one whose
+block window fits the card's shared memory (and, for relax, the pixels a
+block's threads own), with unrolled instances for the presets' values and
+one instance that reads its geometry at run time for the rest.  Beyond the
+card's limit a wrapper raises and names it.  For tensors on the CPU it runs the plain version; for CUDA tensors
 it launches the kernel (built from ``csrc/`` on first use, see
 ``ops.build``) and raises if the launch is refused -- there is no
 fallback.  Each wrapper counts its kernel launches in its ``launches``
@@ -38,7 +43,8 @@ from panorama_opticalflow_tpu_torch.ops.relax_fast import (
 WARP_TILE = (64, 128)
 WARP_MARGIN = 8
 WARP_MAX_OFF = 96
-# blur widths csrc/median5_diffuse.cu is built for
+# blur widths csrc/median5_diffuse.cu unrolls; any other width runs its
+# run-time instance
 DIFFUSE_WIDTHS = (3, 5, 7, 9, 11, 13, 15)
 
 
@@ -62,6 +68,24 @@ def _check(name: str, tensors: dict, shapes: dict) -> torch.device:
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {dev}")
     return dev
+
+
+def _card_limit(name: str, what: str, need_of, values, value) -> None:
+    """Raise unless ``need_of(value)`` (the shared-memory bytes a block
+    needs, <= 0 where the window cannot run at all) fits the card; the
+    error names the largest of ``values`` that does."""
+    from panorama_opticalflow_tpu_torch.ops import build
+
+    limit = build.load().pano_smem_limit()
+    need = need_of(value)
+    if 0 < need <= limit:
+        return
+    fit = [v for v in values if 0 < need_of(v) <= limit]
+    most = f"at most {max(fit)}" if fit else "none"
+    why = (f"needs {need} bytes of shared memory per block, the card "
+           f"allows {limit}" if need > 0 else "does not fit a block")
+    raise ValueError(f"{name}: {what}={value} {why}; this card takes "
+                     f"{most}")
 
 
 def _launch(name: str, fn, *args) -> None:
@@ -159,19 +183,26 @@ def median5_diffuse_plain(x: torch.Tensor, c: torch.Tensor,
 def median5_diffuse(x: torch.Tensor, c: torch.Tensor, ksize: int = 15,
                     sigma: float = 8.0) -> torch.Tensor:
     """Fused per-level median + low-alpha diffusion on (2B, H, W) flow
-    planes with (B, H, W) coefficients ``c = 1 - a0*a1``.  The kernel
-    unrolls its blurs, so it is built for the widths ``DIFFUSE_WIDTHS``
-    only (every preset uses 15)."""
+    planes with (B, H, W) coefficients ``c = 1 - a0*a1``, for any blur
+    width ``ksize`` >= 1.  The kernel unrolls its blurs for the widths
+    ``DIFFUSE_WIDTHS`` (every preset uses 15) and reads any other width at
+    run time, up to the widest whose window fits the card's shared memory
+    (73 on an H100)."""
     if x.dim() != 3 or x.shape[0] % 2:
         raise ValueError("median5_diffuse: x must be (2B, H, W)")
-    if ksize not in DIFFUSE_WIDTHS:
-        raise ValueError(f"median5_diffuse: no kernel is built for ksize="
-                         f"{ksize} (built: {DIFFUSE_WIDTHS})")
+    if int(ksize) != ksize or ksize < 1:
+        raise ValueError(f"median5_diffuse: ksize must be >= 1, got {ksize}")
     p2, h, w = x.shape
     dev = _check("median5_diffuse", {"x": x, "c": c},
                  {"x": (p2, h, w), "c": (p2 // 2, h, w)})
     if dev.type == "cpu":
         return median5_diffuse_plain(x, c, ksize, sigma)
+    if ksize not in DIFFUSE_WIDTHS:   # an unrolled window fits every card
+        from panorama_opticalflow_tpu_torch.ops import build
+
+        _card_limit("median5_diffuse", "ksize",
+                    build.load().pano_median5_diffuse_smem, range(1, 81),
+                    ksize)
     taps = np.ascontiguousarray(gaussian_kernel_1d(ksize, sigma))
     out = torch.empty_like(x)
     _launch("median5_diffuse", "pano_median5_diffuse", x.data_ptr(),
@@ -352,8 +383,8 @@ def _relax_check(name: str, planes: dict, iters: int,
                  D: int) -> torch.device:
     if planes["fx"].dim() != 3:
         raise ValueError(f"{name}: planes must be (B, H, W)")
-    if not 1 <= D <= 3 or iters < 1:
-        raise ValueError(f"{name}: needs 1 <= D <= 3 and iters >= 1, "
+    if D < 1 or iters < 1:
+        raise ValueError(f"{name}: needs D >= 1 and iters >= 1, "
                          f"got D={D}, iters={iters}")
     return _check(name, planes, {k: planes["fx"].shape for k in planes})
 
@@ -362,24 +393,19 @@ def _relax_smem_check(name: str, params: FlowParams, iters: int, D: int,
                       fuse_bf: bool) -> None:
     """Raise when the kernel refuses the geometry: a block's halo window
     grows with ``iters`` and ``D``, and must fit the card's shared memory
-    with at least 24 tile rows."""
+    and the 4096 pixels a block's threads own, with at least 8 tile rows
+    (at D = 2: at most 14 iterations on an H100).  The error names the
+    most iterations this card takes at ``D``."""
     from panorama_opticalflow_tpu_torch.ops import build
 
+    kw = params.blurred_flow_kernel_width
     lib = build.load()
-    need = lib.pano_relax_smem(iters, D, params.blurred_flow_kernel_width,
-                               int(fuse_bf))
-    limit = lib.pano_smem_limit()
-    if need == 0:
-        raise ValueError(f"{name}: the blur scratch of a "
-                         f"{params.blurred_flow_kernel_width}-tap target "
+    if fuse_bf and lib.pano_relax_smem(iters, D, kw, 1) == 0:
+        raise ValueError(f"{name}: the blur scratch of a {kw}-tap target "
                          f"does not fit at iters={iters}, D={D}")
-    if need > limit:
-        raise ValueError(f"{name}: iters={iters}, D={D} needs {need} bytes "
-                         f"of shared memory per block, the card allows "
-                         f"{limit}")
-    if need < 0:
-        raise ValueError(f"{name}: no kernel is built for iters={iters} "
-                         f"(at most 7)")
+    _card_limit(f"{name} at D={D}", "iters",
+                lambda it: lib.pano_relax_smem(it, D, kw, int(fuse_bf)),
+                range(1, 65), iters)
 
 
 def _relax_scalars(params: FlowParams, w: int, D: int) -> tuple:
@@ -399,8 +425,8 @@ def relax_phase(fx, fy, bx, by, w1x, w1y, i0x, i0y, mask,
               "w1y": w1y, "i0x": i0x, "i0y": i0y, "mask": mask}
     dev = _relax_check("relax_phase", planes, iters, D)
     kw = params.blurred_flow_kernel_width
-    if kw % 2 == 0 or not 1 <= kw <= 31:
-        raise ValueError(f"relax_phase: odd blur width <= 31, got {kw}")
+    if kw < 1:
+        raise ValueError(f"relax_phase: blur width >= 1, got {kw}")
     if dev.type == "cpu":
         return relax_phase_fused_plain(fx, fy, bx, by, w1x, w1y, i0x, i0y,
                                        mask, params, iters, D)

@@ -93,7 +93,9 @@ def flow_params_by_name(name: str) -> FlowParams:
     """Flow-algorithm factory, parity with CPU/PixFlow.hpp:459-500 and the
     JAX package's ``_fast`` extensions (a 0.8-factor pyramid, a 64 px
     floor with an init-floor solve, one coarsest relax phase).  Modifiers:
-    ``+stopN`` sets pyr_stop_size, ``+cphN`` coarsest_relax_phases."""
+    ``+stopN`` sets pyr_stop_size, ``+cphN`` coarsest_relax_phases, and
+    ``+pairK`` is accepted and changes nothing: it pairs the reference's
+    scan rungs, which the unrolled pyramid does not have."""
     base, sep, mod = name.partition("+")
     if base == "pixflow_low":
         p = FlowParams(max_percentage=0)
@@ -108,7 +110,9 @@ def flow_params_by_name(name: str) -> FlowParams:
     else:
         raise ValueError(f"unrecognized flow algorithm name: {name}")
     if sep:
-        if mod.startswith("stop") and mod[4:].isdigit():
+        if mod.startswith("pair") and mod[4:].isdigit():
+            pass
+        elif mod.startswith("stop") and mod[4:].isdigit():
             p = dataclasses.replace(p, pyr_stop_size=int(mod[4:]))
         elif mod.startswith("cph") and mod[3:].isdigit():
             p = dataclasses.replace(p, coarsest_relax_phases=int(mod[3:]))

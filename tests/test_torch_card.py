@@ -13,7 +13,12 @@ candidate take.  A stitch on the card against the same stitch on the CPU
 is held at the golden gate of tests/test_golden.py, a batched stitch on
 the card too; against the card's own sequential stitch it is held at the
 gate of tests/test_batching.py (more than 0.98 of the bytes equal, 99.9th
-percentile of the absolute difference <= 8).
+percentile of the absolute difference <= 8).  The widened contract of
+the kernels (iteration counts, hat windows and blur widths beyond the
+unrolled ones) is held against the plain versions at the relax gate of
+the CPU's production tests (1e-5 on all but <= 5e-4 of the pixels: flipped
+takes grow with the iterations).  The row-tiled stitch on the card is held
+against the untiled stitch at the gates of tests/test_tiled.py.
 """
 
 import os
@@ -163,13 +168,30 @@ def test_median5_diffuse_kernel_other_built_widths(rng, cuda, ksize):
 
 
 def test_median5_diffuse_kernel_refuses_a_width_that_is_not_built(rng, cuda):
+    """Beyond the widest blur whose window fits a block's shared memory the
+    wrapper raises and names the widest this card takes (73 on an H100)."""
     x = to_torch(rng.standard_normal((2, 40, 70)).astype(np.float32), cuda)
     c = to_torch(rng.random((1, 40, 70)).astype(np.float32), cuda)
     n = tk.median5_diffuse.launches
-    for ksize in (1, 8, 17):
-        with pytest.raises(ValueError, match="built"):
+    for ksize in (75, 81, 200):
+        with pytest.raises(ValueError, match="takes at most 73"):
             tk.median5_diffuse(x, c, ksize)
+    with pytest.raises(ValueError, match="ksize"):
+        tk.median5_diffuse(x, c, 0)
     assert tk.median5_diffuse.launches == n
+
+
+@pytest.mark.parametrize("ksize", [1, 4, 17, 21, 31, 73])
+def test_median5_diffuse_kernel_run_time_widths(rng, cuda, ksize):
+    """Widths the kernel does not unroll run its run-time instance."""
+    x = to_torch(rng.standard_normal((4, 70, 203)).astype(np.float32), cuda)
+    c = to_torch(rng.random((2, 70, 203)).astype(np.float32), cuda)
+    n = tk.median5_diffuse.launches
+    got = tk.median5_diffuse(x, c, ksize, 8.0)
+    torch.cuda.synchronize()
+    assert tk.median5_diffuse.launches == n + 1
+    ref = tk.median5_diffuse_plain(x, c, ksize, 8.0)
+    assert (got - ref).abs().max().item() <= 1e-5
 
 
 def _relax_planes(rng, cuda, shape, unfused):
@@ -198,24 +220,88 @@ def test_relax_unfused_kernel_matches_plain(rng, cuda, iters):
 
 def test_relax_kernels_refuse_a_window_above_shared_memory(rng, cuda,
                                                            monkeypatch):
-    """A block's window takes most of an H100's 227 KB.  On a card that
-    allows less (here the limit an A100 reports) both wrappers raise
-    before launching and name the need and the limit; so they do beyond
-    the 7 iterations the windows are built for."""
+    """A block's window takes most of an H100's 227 KB.  Beyond the most
+    iterations whose window fits (14 at D = 2), and on a card that allows
+    less (here the limit an A100 reports), both wrappers raise before
+    launching and name the need, the limit and the most iterations the
+    card takes."""
     from panorama_opticalflow_tpu_torch.ops import build
 
     params = flow_params_by_name("pixflow_low")
     fused = _relax_planes(rng, cuda, (1, 64, 64), unfused=False)
     unfused = _relax_planes(rng, cuda, (1, 64, 64), unfused=True)
-    with pytest.raises(ValueError, match="no kernel is built"):
-        tk.relax_phase(*fused, params, 8, 2)
-    with pytest.raises(ValueError, match="no kernel is built"):
-        tk.relax_phase_unfused(*unfused, params, 8, 2)
+    with pytest.raises(ValueError, match="at D=2.*takes at most 14"):
+        tk.relax_phase(*fused, params, 15, 2)
+    with pytest.raises(ValueError, match="at D=2.*takes at most 14"):
+        tk.relax_phase_unfused(*unfused, params, 15, 2)
     monkeypatch.setattr(build.load(), "pano_smem_limit", lambda: 163 * 1024)
     with pytest.raises(ValueError, match="shared memory.*166912"):
         tk.relax_phase(*fused, params, 3, 2)
     with pytest.raises(ValueError, match="shared memory.*166912"):
         tk.relax_phase_unfused(*unfused, params, 3, 2)
+
+
+@pytest.mark.parametrize("iters,D", [(10, 2), (14, 2), (1, 1), (3, 4),
+                                     (9, 3)])
+@pytest.mark.parametrize("unfused", [False, True])
+def test_relax_kernels_widened_contract_match_plain(rng, cuda, iters, D,
+                                                    unfused):
+    """Iteration counts and hat windows beyond the unrolled instances run
+    the run-time instance (and (1, 1), (9, 3) the edges of both)."""
+    params = flow_params_by_name("pixflow_low_fast")
+    planes = _relax_planes(rng, cuda, (2, 150, 300), unfused=unfused)
+    kernel = tk.relax_phase_unfused if unfused else tk.relax_phase
+    plain = (tk.relax_phase_unfused_plain if unfused
+             else tk.relax_phase_fused_plain)
+    n = kernel.launches
+    got = torch.stack(kernel(*planes, params, iters, D))
+    torch.cuda.synchronize()
+    assert kernel.launches == n + 1
+    ref = torch.stack(plain(*planes, params, iters, D))
+    diff = (got - ref).abs().amax(dim=0)
+    assert (diff > 1e-5).float().mean().item() <= 5e-4
+
+
+def test_box_blur_of_a_stack_equals_each_plane_alone(rng, cuda):
+    """On the card a plane's running sums do not depend on the stack it
+    sits in: a stack of 8 blurs to each plane's own bits."""
+    x = to_torch(rng.random((8, 500, 1237)).astype(np.float32), cuda)
+    for k in (7, 13, 2):
+        got = im.box_blur(x, k, k)
+        for p in range(8):
+            assert torch.equal(got[p], im.box_blur(x[p], k, k))
+
+
+def test_tiled_stitch_on_card_matches_untiled(cuda):
+    """The in-process row-tiled stitch (n = 4) against the untiled stitch on
+    the card, at tests/test_tiled.py's gates, with the fused-path kernels
+    launched on the tile stacks."""
+    from panorama_opticalflow_tpu_torch.parallel import tiled
+
+    photos = synthesize_four_input_set(400, 900, seed=2)
+    il, ir = pipeline.compose_four([to_torch(p, cuda) for p in photos])
+    cfg = with_flow_params(StitchConfig(flow_alg="pixflow_low"),
+                           pallas_min_pixels=0)
+    ref = to_numpy(pipeline.stitch_pair(il, ir, cfg))
+    tk.reset_launch_counts()
+    out = to_numpy(tiled.tiled_stitch_pair(
+        il, ir, cfg, 4, tc=tiled.TileConfig(min_tiled_rows=16,
+                                            level_halo=32)))
+    for k in (tk.warp_tiled, tk.relax_phase, tk.median5_diffuse):
+        assert k.launches > 0, k.__name__
+    inner = np.s_[16:-16]
+    assert ssim(out[inner], ref[inner]) >= 0.995
+    assert (out[inner] == ref[inner]).mean() > 0.97
+
+
+def test_tiled_stitch_default_device_is_the_card(cuda):
+    from panorama_opticalflow_tpu_torch.parallel import tiled
+
+    photos = synthesize_four_input_set(96, 320, seed=1)
+    il, ir = pipeline.compose_four([to_torch(p, "cpu") for p in photos])
+    out = tiled.tiled_stitch_pair_auto(
+        il, ir, StitchConfig(), 4, tc=tiled.TileConfig(8, 24))
+    assert out.is_cuda and out.shape == (96, 320, 4)
 
 
 def test_relax_kernel_matches_plain(rng, cuda):

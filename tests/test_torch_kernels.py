@@ -184,12 +184,13 @@ def test_relax_plain_unfolded_matches_pallas(rng, interp):
     np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0)
 
 
-@pytest.mark.parametrize("D", [2, 3])
+@pytest.mark.parametrize("D", [2, 3, 4])
 @pytest.mark.parametrize("fold,w1_bf16", [(True, False), (False, False),
                                           (True, True)])
 def test_relax_unfused_plain_matches_pallas(rng, interp, fold, w1_bf16, D):
     """test_relax_kernel_interpret's cases (2 iterations, a given target)
-    over the whole plane, at D = 2 and 3."""
+    over the whole plane, at D = 2, 3 and 4 (beyond the hat windows the
+    CUDA kernel unrolls)."""
     params = dataclasses.replace(flow_params_by_name("pixflow_low"),
                                  fold_descent_sample=fold, w1_bf16=w1_bf16)
     planes = _unfused_inputs(rng, 1, 48, 96)
@@ -211,6 +212,61 @@ def test_relax_unfused_plain_matches_pallas_production(rng, interp):
     diff = np.abs(got - ref).max(axis=0)
     assert (diff > 1e-5).mean() <= 5e-4, np.argwhere(diff > 1e-5)
     assert np.median(diff) <= 1e-6
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_relax_plain_matches_pallas_at_10_iterations(rng, interp, fused):
+    """The widened contract: 10 iterations, beyond the 7 the CUDA kernel
+    unrolls, on both flow directions at the production schedule; the share
+    gate of the production tests (flipped strict-< takes grow with the
+    iterations, mostly in the first and last rows)."""
+    params = flow_params_by_name("pixflow_low_fast")
+    if fused:
+        planes = _relax_inputs(rng, 2, 96, 200)
+        ref = _pallas_relax(planes, params, 10, 2, (32, 128))
+        got = np.stack([to_numpy(t) for t in tk.relax_phase(
+            *[T(p) for p in planes], params, 10, 2)])
+    else:
+        planes = _unfused_inputs(rng, 2, 96, 200)
+        ref = _pallas_relax_unfused(planes, params, 10, 2, (32, 128))
+        got = np.stack([to_numpy(t) for t in tk.relax_phase_unfused(
+            *[T(p) for p in planes], params, 10, 2)])
+    diff = np.abs(got - ref).max(axis=0)
+    assert (diff > 1e-5).mean() <= 5e-4, np.argwhere(diff > 1e-5)
+    assert np.median(diff) <= 1e-6
+
+
+def test_median5_diffuse_plain_matches_pallas_at_width_17(rng, interp):
+    """A width the CUDA kernel does not unroll; the Pallas kernel's window
+    (24 spare rows) holds widths up to 19."""
+    x = rng.standard_normal((2, 45, 203)).astype(np.float32)
+    c = rng.random((1, 45, 203)).astype(np.float32)
+    ref = np.asarray(jk.median5_diffuse_pallas(jnp.asarray(x),
+                                               jnp.asarray(c), 17, 8.0))
+    got = to_numpy(tk.median5_diffuse(T(x), T(c), 17, 8.0))
+    np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0)
+
+
+def test_median5_diffuse_plain_matches_jnp_ops_at_width_21(rng):
+    """Width 21, wider than the Pallas kernel's window holds: against the
+    kernel's contract made of the JAX package's jnp ops -- its 5x5 median
+    of the edge-padded planes, its Gaussian taps, the separable blur x
+    first, taps ascending, and the blend."""
+    from panorama_opticalflow_tpu.ops import image as jim
+
+    ksize, sigma, gr = 21, 8.0, 10
+    x = rng.standard_normal((4, 45, 203)).astype(np.float32)
+    c = rng.random((2, 45, 203)).astype(np.float32)
+    h, w = x.shape[1:]
+    taps = np.asarray(jim.gaussian_kernel_1d(ksize, sigma))
+    med = jnp.stack([jim.median5(jnp.pad(jnp.asarray(p), gr, mode="edge"))
+                     for p in x])
+    acc = sum(float(taps[t]) * med[:, :, t:t + w] for t in range(ksize))
+    blur = sum(float(taps[t]) * acc[:, t:t + h, :] for t in range(ksize))
+    cc = jnp.repeat(jnp.asarray(c), 2, axis=0)
+    ref = np.asarray(cc * blur + (1.0 - cc) * med[:, gr:gr + h, gr:gr + w])
+    got = to_numpy(tk.median5_diffuse(T(x), T(c), ksize, sigma))
+    np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0)
 
 
 def test_wrappers_take_plain_version_on_cpu(rng):
@@ -263,7 +319,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(rng):
         tk.warp_tiled(img, img, off.float())
     planes = [T(p) for p in _relax_inputs(rng, 1, 20, 30)]
     with pytest.raises(ValueError):
-        tk.relax_phase(*planes, params, 3, 4)
+        tk.relax_phase(*planes, params, 3, 0)
     with pytest.raises(ValueError):
         tk.relax_phase(*planes[:-1], planes[-1][:, :10], params, 3, 2)
     with pytest.raises(TypeError):
@@ -658,12 +714,14 @@ def test_median5_diffuse_run_form_equals_plain(rng, shape, ksize):
 
 
 def test_median5_diffuse_refuses_a_width_that_is_not_built(rng):
+    """Widths below 1 are refused everywhere; on the CPU every other width
+    is the plain version's (the card's limit is in test_torch_card.py)."""
     x = T(rng.standard_normal((2, 20, 30)).astype(np.float32))
     c = T(rng.random((1, 20, 30)).astype(np.float32))
     assert tk.DIFFUSE_WIDTHS == (3, 5, 7, 9, 11, 13, 15)
-    for ksize in (1, 4, 17, 31):
-        with pytest.raises(ValueError, match="built"):
+    for ksize in (0, -1, 2.5):
+        with pytest.raises(ValueError, match="ksize"):
             tk.median5_diffuse(x, c, ksize)
-    for ksize in tk.DIFFUSE_WIDTHS:
+    for ksize in (1, 4, 17, 31) + tk.DIFFUSE_WIDTHS:
         assert torch.equal(tk.median5_diffuse(x, c, ksize),
                            tk.median5_diffuse_plain(x, c, ksize))

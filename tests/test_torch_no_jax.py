@@ -31,6 +31,7 @@ torch.set_num_threads(2)
 import panorama_opticalflow_tpu_torch as port
 from panorama_opticalflow_tpu_torch import cli
 from panorama_opticalflow_tpu_torch.models import pipeline
+from panorama_opticalflow_tpu_torch.parallel import mesh, tiled
 from panorama_opticalflow_tpu_torch.utils import io as pio
 photos, top = port.synthesize_fisheye_set(48, 160, n=5, seed=1)
 out = pipeline.stitch_six(photos, top, port.StitchConfig(
@@ -43,6 +44,9 @@ with tempfile.TemporaryDirectory() as d:
               "--flow_alg", "pixflow_low_fast", "--device", "cpu"])
     final = pio.read_image_rgba_fast(os.path.join(d, "FinalResult.png"))
 assert (final == port.to_numpy(out)).all()
+tiles = tiled.tiled_stitch_pair(photos[0], top, port.StitchConfig(), 4,
+                                tc=tiled.TileConfig(8, 24), device="cpu")
+assert tiles.shape == (48, 160, 4)
 print(sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "panorama_opticalflow_tpu"
              or m.startswith("panorama_opticalflow_tpu.")))
@@ -64,6 +68,7 @@ def test_port_sources_name_no_jax():
     paths = [os.path.join(d, f) for d, _, files in os.walk(pkg)
              for f in files if f.endswith(".py")]
     assert len(paths) > 15
+    assert {"mesh.py", "tiled.py"} <= {os.path.basename(p) for p in paths}
     for path in paths:
         with open(path) as f:
             src = f.read()
@@ -81,7 +86,7 @@ def test_chip_smoke_imports_no_jax():
 @pytest.mark.parametrize("name", [
     "pixflow_low", "pixflow_low_fast", "pixflow_search_20",
     "pixflow_search_20_fast", "pixflow_low_fast+stop48",
-    "pixflow_low_fast+cph2"])
+    "pixflow_low_fast+cph2", "pixflow_low+pair2"])
 def test_config_copy_matches_jax(name):
     """Every field of the port's FlowParams has the JAX package's value in
     every preset; the JAX-only fields are compile-time knobs of XLA and
@@ -99,6 +104,23 @@ def test_config_copy_matches_jax(name):
         flow_alg=name)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jc)
     assert cfg.blend_scale_resolved == jc.blend_scale_resolved
+
+
+@pytest.mark.parametrize("preset", [
+    "pixflow_low", "pixflow_low_fast", "pixflow_search_20",
+    "pixflow_search_20_fast"])
+def test_pair_modifier_keeps_the_preset(preset):
+    """``+pairK`` pairs the reference's scan rungs, which the port's
+    unrolled pyramid does not have: the port takes it and keeps the
+    preset's own FlowParams; the reference changes only the field its rung
+    scan reads."""
+    assert tcfg.flow_params_by_name(preset + "+pair2") == \
+        tcfg.flow_params_by_name(preset)
+    ref = dataclasses.asdict(jcfg.flow_params_by_name(preset + "+pair2"))
+    base = dataclasses.asdict(jcfg.flow_params_by_name(preset))
+    assert {k for k in ref if ref[k] != base[k]} == {"scan_fine_rung_levels"}
+    with pytest.raises(ValueError, match="modifier"):
+        tcfg.flow_params_by_name(preset + "+pairs")
 
 
 def test_with_flow_params_sets_a_schedule_knob():

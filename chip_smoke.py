@@ -55,28 +55,55 @@ csrc/, then runs ten phases and prints one JSON object per phase line:
      interior rows [16:-16] the SSIM (>= 0.995) and the share of equal
      bytes (> 0.97) against the untiled stitch.  With two or more cards
      also J1 with one torch.distributed rank a card under NCCL, every byte
-     equal to the in-process form; else one line saying it was skipped.
+     equal to the in-process form; else one line saying it was skipped;
+  K  the captured programs (utils/programs.py) against programs.disable()
+     for cell 1 (C's stitch), cell 2 (F's production stitch), H's
+     stitch_four and I's eight batched pairs: after programs.clear() the
+     key's first call (eager, kernels and caches warm from the earlier
+     phases) and its second (capture, instantiation, first replay), then
+     eager and program in turns (eager, program, program, eager):
+     latencies, launches against expected_launches for both forms, the
+     device memory the held program keeps, and one profiled replay (device
+     ms, device operations = the graph's kernel, copy and fill nodes, idle
+     share, the host's graph launches and waits, and each hand-written
+     kernel's launches as the profiler saw them on the card, held against
+     the counters and expected_launches).  Gate: every byte of the
+     program's output equal to the eager run's.
 
-Every timed stitch (C, F, G, H, I, J) runs with the launch counts set to 0 just
-before it and read just after; the kernel table sums those counts.  Then a
+The entry points run as captured programs on the card: a key's first call
+is eager, its second captures and replays, later calls replay.  So C, F,
+G, H, I and J's untiled form call their stitch twice before they time it
+(warm_up), and time a replay.  A replay adds to each kernel's launch
+count what its capture saw; phase K checks that against the profiler.
+Every timed stitch (C, F, G, H, I, J) runs with the launch
+counts set to 0 just before it and read just after; the kernel table sums
+those counts.  Then a
 line with the kernel table, a line with nvidia-smi's name and power
 limit, and as the last line {"ok": true, "device": {...}}.  Any failed
 check raises, so the exit code is non-zero and no result line is printed.
 It needs one CUDA card and exits non-zero at once without one.  Float32
 everywhere: TF32 is switched off for matmuls and cuDNN before any work.
 
-Two shorter modes for work on the kernels, each after phase A:
+Three shorter modes, each after phase A:
 
     python3 chip_smoke.py --time-against CSRC    every kernel of this tree
         and of the sources in CSRC (an earlier commit's csrc/) on the same
         inputs, in turns: other, this, this, other
     python3 chip_smoke.py --profile WHAT         torch.profiler over one
-        warm stitch: device time by kernel, launches, idle share.  WHAT is
+        warm stitch (a program's replay): device time by kernel, launches,
+        idle share, the host's graph launches and waits.  WHAT is
         a preset name (the 9000x4000 stitch_six), stitch4 (phase H's
         stitch), batched (phase I's 8 pairs, batched and one pair of the
         sequential form, and the launches of each stage in both forms) or
         tiled (phase J's two pairs, each tiled and untiled; with the
         host's calls that wait for the card)
+    python3 chip_smoke.py --cli-against ROOT     the CLI, one fresh
+        process a stitch (stitch6 of the 9000x4000 set with
+        pixflow_low_fast, stitch4 at 2250x1000 with pixflow_low), of the
+        package in ROOT (an earlier commit's tree) and of this one, in
+        turns: other, this, this, other, after one process each that
+        builds its kernels; the CLI's own stage seconds and each
+        process's wall seconds
 """
 
 from __future__ import annotations
@@ -84,6 +111,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -478,18 +506,27 @@ def device_rows(prof) -> list[tuple]:
     return rows
 
 
-def profile_run(what: str, run, **more) -> None:
-    """torch.profiler over one warm ``run()``: device time by kernel name,
-    the launch count and the card's idle share."""
+# the host's calls into the CUDA runtime that launch a graph or make the
+# host wait for the card (a copy from pageable host memory waits for the
+# stream to drain)
+HOST_CALLS = ("cudaGraphLaunch", "cudaStreamSynchronize",
+              "cudaDeviceSynchronize", "cudaMemcpyAsync", "cudaMemcpy")
+
+
+def host_calls(prof) -> dict:
+    return {e.key: e.count for e in prof.key_averages()
+            if e.key in HOST_CALLS}
+
+
+def device_profile(run) -> dict:
+    """torch.profiler over one ``run()``: the card's time, its operations
+    (kernels, copies and fills; for a program's replay, the graph's nodes
+    that do work), the host's graph launches and waits, and the device
+    rows (``device_rows``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    run()   # warm
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    run()
-    torch.cuda.synchronize()
-    latency = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -497,17 +534,31 @@ def profile_run(what: str, run, **more) -> None:
         torch.cuda.synchronize()
         profiled = time.perf_counter() - t0
     rows = device_rows(prof)
-    device_ms = sum(r[1] for r in rows)
-    # the host's calls into the CUDA runtime that make it wait for the card
-    # (a copy from pageable host memory waits for the stream to drain)
-    waits = {e.key: e.count for e in prof.key_averages()
-             if e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
-                          "cudaMemcpyAsync", "cudaMemcpy")}
+    return {"device_ms": sum(r[1] for r in rows),
+            "device_ops": sum(r[2] for r in rows),
+            "host_calls": host_calls(prof), "profiled_s": profiled,
+            "rows": rows}
+
+
+def profile_run(what: str, run, **more) -> None:
+    """torch.profiler over one warm ``run()``: device time by kernel name,
+    the launch count, the card's idle share and the host's graph launches
+    and waits."""
+    import torch
+
+    from panorama_opticalflow_tpu_torch.utils import programs
+
+    warm_up(run)
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    latency = time.perf_counter() - t0
+    prof = device_profile(run)
+    rows = prof.pop("rows")
     emit({"phase": "profile", "what": what, **more,
-          "latency_s_unprofiled": latency, "latency_s_profiled": profiled,
-          "device_ms": device_ms, "launches": sum(r[2] for r in rows),
-          "host_waits": waits,
-          "idle_share_of_unprofiled": 1 - device_ms / 1e3 / latency,
+          "latency_s_unprofiled": latency, **prof,
+          "programs": programs.info(),
+          "idle_share_of_unprofiled": 1 - prof["device_ms"] / 1e3 / latency,
           "hand_written": [
               {"name": k.split("(anonymous namespace)::")[1].split("(")[0],
                "ms": ms, "count": n} for k, ms, n in rows
@@ -631,8 +682,24 @@ def expected_launches(windows, canvas_h: int, params, tiles=None) -> dict:
     return n
 
 
+def warm_up(run) -> tuple[float, float]:
+    """``run()`` twice, so that the next call of a program is a replay:
+    its key's eager first call, then its capture, instantiation and first
+    replay.  Returns both calls' seconds."""
+    import torch
+
+    secs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return secs[0], secs[1]
+
+
 def drive_run(run, inputs, warm: bool):
-    """One timed ``run()`` (after a warm one if ``warm``), with the launch
+    """One timed ``run()`` (after ``warm_up`` if ``warm``), with the launch
     counts and the peak memory reset just before it and read just after.
     Returns the output and a record of the measurements, including
     whether the output's alpha footprint is exactly the union of the
@@ -643,11 +710,7 @@ def drive_run(run, inputs, warm: bool):
 
     rec = {}
     if warm:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        rec["warm_s"] = time.perf_counter() - t0
+        rec["warm_s"], rec["capture_s"] = warm_up(run)
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
@@ -852,7 +915,8 @@ def phase_f(dev, photos_d, top_d) -> dict:
         cfg = with_flow_params(base, **changes)
         params = cfg.flow_params
         expected = expected_launches(windows, h, params)
-        out, rec = drive(photos_d, top_d, cfg, dev, warm=prod is None)
+        # each schedule is a program of its own
+        out, rec = drive(photos_d, top_d, cfg, dev, warm=True)
         if prod is None:
             prod = out
         else:
@@ -989,7 +1053,9 @@ def phase_i(dev) -> dict:
         "batched": lambda: pipeline.stitch_pairs(ls, rs, cfg, device=dev),
         "sequential": lambda: torch.stack(
             [pipeline.stitch_pair(a, b, cfg) for a, b in zip(ls, rs)])}
-    forms["batched"]()   # warm (phase H warmed the sequential form's ops)
+    # each form's program: its key's eager call and its capture
+    warm_up(forms["batched"])
+    warm_up(lambda: pipeline.stitch_pair(ls[0], rs[0], cfg))
     outs, recs = {}, {"batched": [], "sequential": []}
     for form in ("sequential", "batched", "batched", "sequential"):
         out, rec = drive_run(forms[form], [ls, rs], warm=False)
@@ -1101,7 +1167,7 @@ def phase_j(dev, headline) -> dict:
                                        (TILED_N, c["tc"]))}
         forms = tiled_runs(c, TILED_N)
         for form in forms.values():
-            form()   # warm
+            warm_up(form)
         outs, recs = {}, {"untiled": [], "tiled": []}
         for form in ("untiled", "tiled", "tiled", "untiled"):
             out, rec = drive_run(forms[form], list(c["pair"]), warm=False)
@@ -1204,6 +1270,193 @@ def distributed(dev) -> None:
                  "from the in-process one")
 
 
+# the hand-written kernels' symbols as the profiler names them, and the
+# launch counters of each (one symbol serves both relax variants)
+KERNEL_SYMBOLS = {"warp_tiled_kernel<": ("warp_tiled",),
+                  "relax_phase_kernel<": ("relax_phase",
+                                          "relax_phase_unfused"),
+                  "median5_diffuse_kernel<": ("median5_diffuse",),
+                  "median5_kernel<": ("median5",)}
+
+
+def profiled_launches(rows, counted: dict, expected: dict, tag: str) -> dict:
+    """Each hand-written kernel's launches as the profiler saw them on the
+    card, held against the wrappers' counters of the same run and against
+    ``expected``: a replay's counts are the capture's, so this is what
+    shows that the graph ran each kernel node once."""
+    seen = {}
+    for symbol, names in KERNEL_SYMBOLS.items():
+        seen[symbol[:-1]] = n = sum(c for name, _, c in rows
+                                    if symbol in name)
+        check(n == sum(counted[k] for k in names) ==
+              sum(expected[k] for k in names),
+              f"{tag}: {symbol[:-1]} ran {n} times on the card, counted "
+              f"{[counted[k] for k in names]}, expected "
+              f"{[expected[k] for k in names]}")
+    return seen
+
+
+def program_cell(cell: str, run, inputs, expected: dict, hw) -> None:
+    """Phase K for one cell: ``run()`` is its entry point's call, a program
+    on the card.  After programs.clear(), its key's first call (eager, with
+    the kernels and caches of earlier phases warm) and second call
+    (capture, instantiation, first replay); then programs.disable() against
+    the program in turns (eager, program, program, eager); the memory the
+    held program keeps; one profiled replay, whose kernel launches on the
+    card are held against the counters and expected_launches.  Gate:
+    every byte equal, launches as expected in both forms."""
+    import torch
+
+    from panorama_opticalflow_tpu_torch.ops import kernels
+    from panorama_opticalflow_tpu_torch.utils import programs
+
+    def eager():
+        with programs.disable():
+            return run()
+
+    programs.clear()
+    torch.cuda.empty_cache()
+    first_call_s, capture_call_s = warm_up(run)
+    (costs,) = programs.info()
+    outs, recs = {}, {"eager": [], "program": []}
+    forms = {"eager": eager, "program": run}
+    for form in ("eager", "program", "program", "eager"):
+        out, rec = drive_run(forms[form], inputs, warm=False)
+        check_run(f"phase K {cell} {form}", out, rec, expected, *hw)
+        if form in outs:
+            check(torch.equal(out, outs[form]),
+                  f"phase K {cell}: two {form} runs differ")
+        recs[form].append(rec)
+        outs[form] = out
+    same = (outs["program"] == outs["eager"]).double().mean().item()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved()
+    kernels.reset_launch_counts()
+    prof = device_profile(run)
+    counted = {k.__name__: k.launches for k in kernels.KERNELS}
+    on_card = profiled_launches(prof["rows"], counted, expected,
+                                f"phase K {cell} profiled replay")
+    latency = sorted(r["latency_s"] for r in recs["program"])[0]
+    emit({"phase": "K", "cell": cell, "first_call_s": first_call_s,
+          "capture_call_s": capture_call_s,
+          "capture": {k: costs[k] for k in ("capture_s", "instantiate_s")},
+          "constants_held": costs["constants"],
+          **{f"{form}_{key}": [r[key] for r in recs[form]]
+             for form in recs for key in ("latency_s",
+                                          "max_memory_allocated_bytes",
+                                          "launches")},
+          "expected_launches": expected,
+          "replay_launches_on_card": on_card,
+          "reserved_bytes_with_program_held": held,
+          "replay_device_ms": prof["device_ms"],
+          "graph_device_ops": prof["device_ops"],
+          "replay_host_calls": prof["host_calls"],
+          "replay_idle_share": 1 - prof["device_ms"] / 1e3 / latency,
+          "same_share": same})
+    check(same == 1.0, f"phase K {cell}: program against eager, "
+                       f"{same} of the bytes equal")
+    del outs
+    programs.clear()
+    torch.cuda.empty_cache()
+
+
+def phase_k_chains(dev, photos_d, top_d) -> None:
+    """Phase K for cells 1 and 2: stitch_six at 9000 x 4000 with
+    pixflow_low_fast and pixflow_low."""
+    import panorama_opticalflow_tpu_torch as port
+    from panorama_opticalflow_tpu_torch.models import pipeline
+
+    h = HEADLINE[0]
+    for alg in ("pixflow_low_fast", "pixflow_low"):
+        cfg = port.StitchConfig(flow_alg=alg)
+        program_cell(alg, lambda cfg=cfg: pipeline.stitch_six(
+                         photos_d, top_d, cfg, device=dev),
+                     [top_d, *photos_d],
+                     expected_launches(HEADLINE_WINDOWS, h, cfg.flow_params),
+                     HEADLINE)
+
+
+def phase_k_pairs(dev) -> None:
+    """Phase K for phase H's stitch_four and phase I's eight batched
+    pairs."""
+    import panorama_opticalflow_tpu_torch as port
+    from panorama_opticalflow_tpu_torch.models import pipeline
+
+    h, w = FOUR
+    cfg = port.StitchConfig(flow_alg=FOUR_ALG)
+    expected = expected_launches(full_canvas_flow_window(w, cfg), h,
+                                 cfg.flow_params)
+    photos = [port.to_torch(p, dev)
+              for p in port.synthesize_four_input_set(h, w, seed=0)]
+    program_cell("stitch_four", lambda: pipeline.stitch_four(
+                     photos, cfg, device=dev),
+                 list(pipeline.compose_four(photos)), expected, FOUR)
+    ls, rs = batch_pairs(dev)
+    program_cell(f"stitch_pairs_of_{BATCH_PAIRS}",
+                 lambda: pipeline.stitch_pairs(ls, rs, cfg, device=dev),
+                 [ls, rs], expected, FOUR)
+
+
+STAGE_LINE = re.compile(r"(\w+) finished! RUNTIME \(sec\) = ([0-9.]+)")
+TOTAL_LINE = re.compile(r"TotalRunTime \(sec\) = ([0-9.]+)")
+
+
+def cli_run(root: str, argv: list[str]) -> dict:
+    """One CLI process of the package in ``root``: its stage seconds and
+    total (its own StageTimer lines; a stitch prints them) and the
+    process's wall seconds."""
+    t0 = time.perf_counter()
+    done = subprocess.run(
+        [sys.executable, "-m", "panorama_opticalflow_tpu_torch.cli", *argv],
+        cwd=root, env={**os.environ, "PYTHONPATH": root},
+        capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    check(done.returncode == 0,
+          f"CLI {argv[0]} in {root}: exit {done.returncode}: "
+          f"{done.stderr[-2000:]}")
+    out = done.stdout + done.stderr
+    total = TOTAL_LINE.search(out)
+    return {"stages_s": {m.group(1): float(m.group(2))
+                         for m in STAGE_LINE.finditer(out)},
+            "total_s": float(total.group(1)) if total else None,
+            "wall_s": wall}
+
+
+def cli_against(other: str) -> None:
+    """The CLI of the package in ``other`` and of this one, a fresh
+    process a stitch, in turns (other, this, this, other) after one
+    process each that builds its kernels: stitch6 of the 9000x4000
+    synthetic set with pixflow_low_fast (cell 1) and stitch4 of the
+    2250x1000 four-input set with pixflow_low."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    other = os.path.abspath(other)
+    data = os.path.join(here, "build", "cli_data")
+    h, w = HEADLINE
+    sets = {"stitch6": (os.path.join(data, "six"), ["--height", str(h),
+                                                    "--width", str(w)]),
+            "stitch4": (os.path.join(data, "four"),
+                        ["--height", str(FOUR[0]), "--width", str(FOUR[1]),
+                         "--four"])}
+    t0 = time.perf_counter()
+    for d, size in sets.values():
+        cli_run(here, ["synth", "--test_dir", d, *size])
+    argv = {"stitch6": ["stitch6", "--test_dir", sets["stitch6"][0],
+                        "--top_img", "top.tif",
+                        "--flow_alg", "pixflow_low_fast"],
+            "stitch4": ["stitch4", "--test_dir", sets["stitch4"][0],
+                        "--flow_alg", FOUR_ALG]}
+    emit({"phase": "cli", "setup_s": time.perf_counter() - t0,
+          "other": other})
+    for root in (other, here):
+        cli_run(root, argv["stitch4"])     # builds the kernels
+    for cmd in ("stitch6", "stitch4"):
+        runs = {"other": [], "this": []}
+        for form in ("other", "this", "this", "other"):
+            runs[form].append(cli_run(other if form == "other" else here,
+                                      argv[cmd]))
+        emit({"phase": "cli", "command": cmd, **runs})
+
+
 def main() -> None:
     import argparse
 
@@ -1213,6 +1466,9 @@ def main() -> None:
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--time-against", metavar="CSRC",
                       help="time every kernel against the sources in CSRC")
+    mode.add_argument("--cli-against", metavar="ROOT",
+                      help="time the CLI of the package in ROOT against "
+                           "this one's, a fresh process a stitch")
     mode.add_argument("--profile", metavar="WHAT",
                       help="torch.profiler over one stitch: a preset name "
                            "(9000x4000 stitch_six), stitch4, batched or "
@@ -1228,9 +1484,11 @@ def main() -> None:
     smi = nvidia_smi()
 
     phase_a(smi)
-    if args.time_against or args.profile:
+    if args.time_against or args.profile or args.cli_against:
         if args.time_against:
             time_against(args.time_against, dev)
+        elif args.cli_against:
+            cli_against(args.cli_against)
         else:
             profile_what(args.profile, dev)
         print(smi, flush=True)
@@ -1245,12 +1503,14 @@ def main() -> None:
     phase_e(dev)
     launches_f = phase_f(dev, photos_d, top_d)
     launches_g = phase_g(dev, photos_d, top_d)
+    phase_k_chains(dev, photos_d, top_d)
     # phase J's second pair, kept on the host meanwhile
     headline = tuple(t.cpu() for t in (photos_d[0], photos_d[1], top_d))
     del photos_d, top_d
     torch.cuda.empty_cache()
     launches_h = phase_h(dev)
     launches_i = phase_i(dev)
+    phase_k_pairs(dev)
     torch.cuda.empty_cache()
     launches_j = phase_j(dev, headline)
     counts = [launches_c, *launches_f.values(), launches_g, launches_h,

@@ -58,6 +58,7 @@ def cmd_stitch6(args) -> None:
     import torch
 
     from panorama_opticalflow_tpu_torch.models import crop, pipeline
+    from panorama_opticalflow_tpu_torch.utils import programs
 
     _require(args, "test_dir")
     _require(args, "top_img")
@@ -85,7 +86,10 @@ def cmd_stitch6(args) -> None:
     windows = crop.plan_chain_windows(images, result, cfg)
 
     for i, (image_l, window) in enumerate(zip(images, windows), start=start):
-        with timer.stage(f"Part{i}"):
+        # eager (programs.disable): a process stitches one chain, whose
+        # pairs share two or three window keys; a capture and its
+        # instantiation cost more than the replays they would buy here
+        with timer.stage(f"Part{i}"), programs.disable():
             if args.debug_dump:
                 result, inter = pipeline.stitch_pair_debug(
                     image_l, result, cfg, device=device)

@@ -29,6 +29,7 @@ from panorama_opticalflow_tpu_torch.ops import image as im
 from panorama_opticalflow_tpu_torch.ops import kernels
 from panorama_opticalflow_tpu_torch.ops.relax_fast import relax_phase_fast
 from panorama_opticalflow_tpu_torch.ops.warp import bilinear_extend
+from panorama_opticalflow_tpu_torch.utils import programs
 
 
 def pyramid_sizes(h: int, w: int, params: FlowParams) -> list[tuple[int, int]]:
@@ -113,12 +114,11 @@ def relax_iteration(flow, i0x, i0y, i1g, blurred_flow, update_mask,
     def err(c):
         return error_function(c, i0x, i0y, i1g, blurred_flow, params)
 
-    inf = torch.tensor(float("inf"), device=flow.device)
     best_flow = flow
     best_err = err(flow)
     for dy, dx in ((0, 1), (1, 0), (0, -1), (-1, 0)):
         cand, valid = _shift_with_valid(flow, dy, dx)
-        e = torch.where(valid, err(cand), inf)
+        e = torch.where(valid, err(cand), float("inf"))
         take = e < best_err
         best_flow = torch.where(take[..., None], cand, best_flow)
         best_err = torch.where(take, e, best_err)
@@ -290,6 +290,15 @@ def search_box_offsets(hint: str, dist: int) -> list[tuple[int, int]]:
     return [(dy, dx) for dy in ys for dx in xs]
 
 
+@programs.device_constant
+def _search_candidates(hint: str, dist: int, device: str) -> torch.Tensor:
+    """(0, 0) and the search box offsets as (N, (dy, dx)) float32 on
+    ``device``, made once: a copy from host memory waits for the card's
+    stream, and a captured program cannot hold one."""
+    return torch.tensor([(0, 0)] + search_box_offsets(hint, dist),
+                        dtype=torch.float32, device=device)
+
+
 def adjust_initial_flow(i0: torch.Tensor, i1: torch.Tensor,
                         alpha0: torch.Tensor, alpha1: torch.Tensor,
                         hint: str, params: FlowParams) -> torch.Tensor:
@@ -304,7 +313,6 @@ def adjust_initial_flow(i0: torch.Tensor, i1: torch.Tensor,
     h, w = i0.shape
     yy = torch.arange(h, device=i0.device)[:, None]
     xx = torch.arange(w, device=i0.device)[None, :]
-    inf = torch.tensor(float("inf"), device=i0.device)
 
     def patch_error(dy: int, dx: int) -> torch.Tensor:
         sad = _box5_zero(torch.abs(i0 - _shift_clamped(i1eq, dy, dx)))
@@ -315,18 +323,17 @@ def adjust_initial_flow(i0: torch.Tensor, i1: torch.Tensor,
         # candidate centre must be in bounds (CPU/PixFlow.hpp:253)
         valid = ((yy + dy >= 0) & (yy + dy < h)
                  & (xx + dx >= 0) & (xx + dx < w))
-        return torch.where(valid, e, inf)
+        return torch.where(valid, e, float("inf"))
 
     err00 = patch_error(0, 0)
     # NaN err00 (zero alpha overlap) keeps zero flow in the reference's
     # strict comparisons: -inf makes the bias entry win
-    bias = torch.where(torch.isnan(err00), -inf, 0.8 * err00)
+    bias = torch.where(torch.isnan(err00), float("-inf"), 0.8 * err00)
     errs = [bias] + [torch.nan_to_num(patch_error(dy, dx), nan=float("inf"))
                      for dy, dx in offsets]
     # first occurrence wins ties == the reference's strictly-less update
     choice = torch.argmin(torch.stack(errs), dim=0)
-    cand = torch.tensor([(0, 0)] + offsets, dtype=torch.float32,
-                        device=i0.device)             # (N, (dy, dx))
+    cand = _search_candidates(hint, dist, str(i0.device))  # (N, (dy, dx))
     flow = cand[choice].flip(-1)                      # (H, W, (dx, dy))
     update = alpha0 > params.update_alpha_threshold
     return torch.where(update[..., None], flow, torch.zeros_like(flow))
@@ -364,8 +371,8 @@ def _floor_twin_flow(planes: torch.Tensor, hw: tuple[int, int], solve,
     (hh, ww), (th, tw) = hw, tiny[-1]
     up = _from_planes(im.resize_planes(_as_planes(f_t), (hh, ww), "cubic"),
                       f_t.shape[0])
-    return up * torch.tensor([ww / tw, hh / th], dtype=torch.float32,
-                             device=up.device)
+    # two Python floats: the products a two-element float32 tensor gives
+    return torch.stack([up[..., 0] * (ww / tw), up[..., 1] * (hh / th)], -1)
 
 
 def patch_match_level(i0: torch.Tensor, i1: torch.Tensor,

@@ -42,10 +42,25 @@ def extract_overlap(image: torch.Tensor,
     return image * mask[..., None]
 
 
-def window_cols(a: torch.Tensor, roll: int, width: int) -> torch.Tensor:
+def _window_index(roll, width: int, w: int, device) -> torch.Tensor:
+    """Canvas columns (roll + [0, width)) mod w; ``roll`` is an int or a
+    0-d int64 tensor on ``device`` (a program's input: one program serves
+    every roll of a width)."""
+    return (torch.arange(width, device=device) + roll) % w
+
+
+def window_cols(a: torch.Tensor, roll, width: int) -> torch.Tensor:
     """Columns [roll, roll + width) of ``a`` (circularly): the canvas rolled
     left by ``roll``, cut to ``width``."""
-    return torch.roll(a, -roll, dims=1)[:, :width]
+    return a.index_select(1, _window_index(roll, width, a.shape[1], a.device))
+
+
+def place_cols(a_w: torch.Tensor, roll, w: int) -> torch.Tensor:
+    """``window_cols``'s inverse: the (H, width, ...) window at columns
+    [roll, roll + width) (circularly) of a zero canvas ``w`` wide."""
+    out = a_w.new_zeros((a_w.shape[0], w, *a_w.shape[2:]))
+    return out.index_copy_(1, _window_index(roll, a_w.shape[1], w,
+                                            a_w.device), a_w)
 
 
 def generate_blend(canvas_map: torch.Tensor, cfg: StitchConfig,
@@ -168,12 +183,12 @@ def gather_composite(ctx_map: torch.Tensor, image_l: torch.Tensor,
     (bit-identical when crop.gather_window_safe holds).  Without a window
     the arguments may be stacks with a leading N: the canvases are then
     composited together, each as alone."""
-    h, w = ctx_map.shape[-2:]
+    w = ctx_map.shape[-1]
     merged_a = im.threshold_binary(merged_middle[..., 3], 0, 75)
     code = ctx_map + merged_a
     r = cfg.gather_search_radius
-    black = torch.tensor([0, 0, 0, 255], dtype=torch.uint8,
-                         device=image_l.device)
+    black = torch.zeros(4, dtype=torch.uint8, device=image_l.device)
+    black[3:].fill_(255)
 
     def hole_from(codes, img_l, img_r):
         found, take_l = two_class_hole_search(codes == 100, codes == 50, r)
@@ -185,11 +200,10 @@ def gather_composite(ctx_map: torch.Tensor, image_l: torch.Tensor,
         hole = hole_from(code, image_l, image_r)
     else:
         roll, width = window
-        hole = torch.zeros((h, w, 4), dtype=torch.uint8, device=code.device)
-        hole[:, :width] = hole_from(window_cols(code, roll, width),
+        hole = place_cols(hole_from(window_cols(code, roll, width),
                                     window_cols(image_l, roll, width),
-                                    window_cols(image_r, roll, width))
-        hole = torch.roll(hole, roll, dims=1)
+                                    window_cols(image_r, roll, width)),
+                          roll, w)
 
     zero = torch.zeros((4,), dtype=torch.uint8, device=image_l.device)
     out = torch.where((code == 100)[..., None], image_l, zero)

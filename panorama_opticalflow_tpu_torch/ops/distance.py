@@ -127,9 +127,9 @@ def _without_first(mask: torch.Tensor, col: bool, row: bool) -> torch.Tensor:
     invisible to -x and -y rays."""
     out = mask.clone()
     if col:
-        out[..., :, 0] = False
+        out[..., :, 0].fill_(False)
     if row:
-        out[..., 0, :] = False
+        out[..., 0, :].fill_(False)
     return out
 
 

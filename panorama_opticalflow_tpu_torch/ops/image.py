@@ -21,14 +21,21 @@ import functools
 import numpy as np
 import torch
 
+from panorama_opticalflow_tpu_torch.utils.programs import device_constant
+
 # ---------------------------------------------------------------------------
 # Padding along one axis (numpy pad semantics, via an index gather)
 # ---------------------------------------------------------------------------
 
 
-@functools.lru_cache(maxsize=256)
-def _pad_index(n: int, lo: int, hi: int, mode: str) -> np.ndarray:
-    return np.pad(np.arange(n), (lo, hi), mode=mode)
+@device_constant
+def _pad_index(n: int, lo: int, hi: int, mode: str,
+               device: str) -> torch.Tensor:
+    """np.pad's source index on ``device``, made once: a copy from host
+    memory waits for the card's stream, and a captured program cannot
+    hold one."""
+    return torch.from_numpy(np.pad(np.arange(n), (lo, hi),
+                                   mode=mode)).to(device)
 
 
 def pad_axis(x: torch.Tensor, axis: int, lo: int, hi: int,
@@ -48,8 +55,8 @@ def pad_axis(x: torch.Tensor, axis: int, lo: int, hi: int,
                 shape[axis] = n
                 parts.append(torch.zeros(shape, dtype=x.dtype, device=x.device))
         return torch.cat(parts, dim=axis)
-    idx = torch.from_numpy(_pad_index(x.shape[axis], lo, hi, mode))
-    return x.index_select(axis, idx.to(x.device))
+    return x.index_select(axis, _pad_index(x.shape[axis], lo, hi, mode,
+                                           str(x.device)))
 
 
 # ---------------------------------------------------------------------------
@@ -89,7 +96,7 @@ def _resize_axis_plan(in_size: int, out_size: int, method: str):
     return idx, w.astype(np.float32)
 
 
-@functools.lru_cache(maxsize=None)
+@device_constant
 def _resize_axis_taps(in_size: int, out_size: int, method: str,
                       device: str):
     """The plan's (K, out) indices and weights on ``device``, made once:

@@ -215,7 +215,6 @@ def relax_phase_fast(flow: torch.Tensor, f_base: torch.Tensor,
         # quantise once at load, arithmetic stays f32 (kernel parity)
         w1g = w1g.to(torch.bfloat16).to(torch.float32)
     w1_pad = _pad2(w1g.permute(0, 3, 1, 2), pad, pad, pad, pad)
-    inf = torch.tensor(float("inf"), device=i0x.device)
     cols = torch.arange(w, device=i0x.device)[None, :]
     rows = torch.arange(h, device=i0x.device)[:, None]
     valid = {"xp": cols >= 1, "xm": cols < w - 1,
@@ -241,7 +240,7 @@ def relax_phase_fast(flow: torch.Tensor, f_base: torch.Tensor,
             samp = shift_edge(nbrs[key], dy, dx)
             e = _err_terms(i0x, i0y, samp[:, 0], samp[:, 1], cfx, cfy,
                            bfx, bfy, params, w)
-            e = torch.where(valid[key], e, inf)
+            e = torch.where(valid[key], e, float("inf"))
             take = e < best_e
             best_fx = torch.where(take, cfx, best_fx)
             best_fy = torch.where(take, cfy, best_fy)

@@ -32,9 +32,10 @@ from panorama_opticalflow_tpu_torch import (StitchConfig,
                                             synthesize_fisheye_set,
                                             synthesize_four_input_set,
                                             to_numpy, to_torch)
-from panorama_opticalflow_tpu_torch.models import pipeline
+from panorama_opticalflow_tpu_torch.models import crop, pipeline
 from panorama_opticalflow_tpu_torch.ops import image as im
 from panorama_opticalflow_tpu_torch.ops import kernels as tk
+from panorama_opticalflow_tpu_torch.utils import programs
 from panorama_opticalflow_tpu_torch.utils.config import with_flow_params
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden",
@@ -461,3 +462,165 @@ def test_stitch_pairs_on_card_matches_cpu(cuda):
     ref = to_numpy(pipeline.stitch_pairs(ls, rs, cfg, device="cpu"))
     for got, want in zip(out, ref):
         _golden_gate(got, want)
+
+
+# ---------------------------------------------------------------------------
+# captured programs (utils/programs.py): a replay gives the eager run's
+# bytes and launches, owns nothing the caller holds, and never falls back
+# ---------------------------------------------------------------------------
+
+
+def _eager_then_thrice(run):
+    """``run()`` under programs.disable(), then three times as a program
+    (its key's eager first call, the capture and its replay, a later
+    replay)."""
+    programs.clear()
+    with programs.disable():
+        eager = run()
+    return eager, run(), run(), run()
+
+
+def test_program_replays_give_the_eager_bytes(cuda):
+    """A chain on narrower windows than its canvas (64 x 1280: 768-wide),
+    stitch_four and stitch_pairs at N = 2: every byte of every replay equals
+    the eager run's."""
+    photos, top = synthesize_fisheye_set(64, 1280, n=5, seed=0)
+    fast = StitchConfig(flow_alg="pixflow_low_fast")
+    four = synthesize_four_input_set(96, 320, seed=1)
+    low = StitchConfig(flow_alg="pixflow_low")
+    stack = np.stack(four[:2])
+    runs = {
+        "chain": lambda: pipeline.stitch_six(photos, top, fast, device=cuda),
+        "stitch_four": lambda: pipeline.stitch_four(four, low, device=cuda),
+        "stitch_pairs": lambda: pipeline.stitch_pairs(
+            stack, stack[::-1].copy(), low, device=cuda)}
+    for name, run in runs.items():
+        eager, *calls = _eager_then_thrice(run)
+        assert len(programs.keys()) == 1, name
+        assert programs.info()[0]["replays"] == 2, name
+        for call in calls:
+            assert torch.equal(call, eager), name
+    programs.clear()
+
+
+def test_program_results_are_the_callers(cuda):
+    """Two pairs through one program: the first result stays as it was
+    after the second replay, and each equals its eager run."""
+    cfg = StitchConfig(flow_alg="pixflow_low_fast")
+    pairs = [pipeline.compose_four([to_torch(p, cuda) for p in
+                                    synthesize_four_input_set(96, 320,
+                                                              seed=k)])
+             for k in (1, 2)]
+    programs.clear()
+    pipeline.stitch_pair(*pairs[1], cfg)       # the key's eager call
+    first = pipeline.stitch_pair(*pairs[0], cfg)
+    kept = first.clone()
+    second = pipeline.stitch_pair(*pairs[1], cfg)
+    assert len(programs.keys()) == 1
+    assert torch.equal(first, kept)
+    assert not torch.equal(first, second)
+    with programs.disable():
+        assert torch.equal(first, pipeline.stitch_pair(*pairs[0], cfg))
+        assert torch.equal(second, pipeline.stitch_pair(*pairs[1], cfg))
+    programs.clear()
+
+
+def test_one_program_serves_every_roll_of_a_width(cuda):
+    """The roll is the windowed program's input: one pair at three rolls
+    of one 768-wide window is one program, and each result is its eager
+    run's, byte for byte."""
+    photos, top = synthesize_fisheye_set(64, 1280, n=5, seed=0)
+    cfg = StitchConfig(flow_alg="pixflow_low_fast")
+    image_l, image_r = to_torch(photos[1], cuda), to_torch(top, cuda)
+    roll, width, _ = crop.plan_chain_windows(
+        [to_torch(p, cuda) for p in photos], image_r, cfg)[1]
+    assert width < 1280
+    programs.clear()
+    for r in (roll, roll + 64, roll, roll - 64):
+        got = pipeline.stitch_pair_windowed(image_l, image_r, r % 1280,
+                                            width, False, cfg)
+        with programs.disable():
+            want = pipeline.stitch_pair_windowed(image_l, image_r, r % 1280,
+                                                 width, False, cfg)
+        assert torch.equal(got, want), r
+    assert len(programs.keys()) == 1
+    assert programs.info()[0]["replays"] == 3
+    programs.clear()
+
+
+def test_program_with_a_host_read_raises_at_capture(cuda):
+    ran = []
+
+    def reads_the_host(x):
+        ran.append(1)
+        return x * x.sum().item()
+
+    x = torch.ones(8, device=cuda)
+    programs.clear()
+    # the key's first call is its eager warm run; the second captures
+    assert torch.equal(programs.run(reads_the_host, (x,)), x * 8)
+    with pytest.raises(programs.ProgramError,
+                       match="reads_the_host: capture failed"):
+        programs.run(reads_the_host, (x,))
+    # the warm run and the capture; no eager run takes the failed one's place
+    assert len(ran) == 2
+    assert programs.keys() == []
+    torch.cuda.synchronize()
+    assert torch.equal(programs.run(lambda t: t + 1, (x,)), x + 1)
+    programs.clear()
+
+
+def test_program_replay_counts_the_eager_launches(cuda):
+    cfg = with_flow_params(StitchConfig(flow_alg="pixflow_low_fast"),
+                           pallas_min_pixels=0)
+    four = synthesize_four_input_set(96, 320, seed=1)
+    programs.clear()
+    tk.reset_launch_counts()
+    with programs.disable():
+        pipeline.stitch_four(four, cfg, device=cuda)
+    eager = {k.__name__: k.launches for k in tk.KERNELS}
+    assert eager["relax_phase"] == eager["median5_diffuse"] > 0
+    # the key's eager first call, the capture with its replay, a replay:
+    # each counts one stitch's launches
+    for _ in range(3):
+        tk.reset_launch_counts()
+        pipeline.stitch_four(four, cfg, device=cuda)
+        assert {k.__name__: k.launches for k in tk.KERNELS} == eager
+    assert programs.info()[0]["replays"] == 2
+    programs.clear()
+
+
+def test_chain_body_does_not_wait_for_the_card(cuda):
+    """After a warm run (which fills the card-side caches) the chain's
+    body runs eagerly with no call that waits for the card: what
+    torch.cuda.set_sync_debug_mode("error") refuses, a capture refuses."""
+    photos, top = synthesize_fisheye_set(64, 1280, n=5, seed=0)
+    cfg = StitchConfig(flow_alg="pixflow_search_20_fast")
+    photos = [to_torch(p, cuda) for p in photos]
+    top = to_torch(top, cuda)
+    windows = crop.plan_chain_windows(photos, top, cfg)
+    rolls = torch.tensor([r for r, _, _ in windows], device=cuda)
+    shapes = tuple((wd, g) for _, wd, g in windows)
+    pipeline._chain_body(top, rolls, *photos, shapes, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pipeline._chain_body(top, rolls, *photos, shapes, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def test_floor_twin_scale_by_two_floats_is_the_tensor_product(rng, cuda):
+    """On the card too: two Python floats give the products of a
+    two-element float32 tensor, bit for bit (the init-floor twin's
+    scale)."""
+    up = to_torch(rng.standard_normal((2, 40, 50, 2)).astype(np.float32)
+                  * 30, cuda)
+    for (hh, ww), (th, tw) in (((64, 288), (26, 116)),
+                               ((2000, 1792), (25, 23))):
+        ref = up * torch.tensor([ww / tw, hh / th], dtype=torch.float32,
+                                device=cuda)
+        got = torch.stack([up[..., 0] * (ww / tw), up[..., 1] * (hh / th)],
+                          -1)
+        assert torch.equal(got.view(torch.int32), ref.view(torch.int32))

@@ -12,8 +12,10 @@ csrc/, then runs ten phases and prints one JSON object per phase line:
      level of its pyramid and at a ragged small shape, with kernel and
      plain median times (CUDA events; the kernel table keeps the finest
      level's), the kernel's bound (bytes at the memory rate or operations at the float32
-     peak, whichever is longer) and, for the warp, the time of
-     F.grid_sample on the same inputs; the unfused relax at 2 and 3
+     peak, whichever is longer) and the time of one library call that
+     computes the same function on the same inputs where there is one
+     (F.grid_sample for the warp; for median5 torch.median over the 25
+     values of each window of the replicate-padded plane); the unfused relax at 2 and 3
      iterations; the widened contract (relax at 10 iterations, the unfused
      relax at hat window D = 4, median5+diffuse at blur width 21: the
      kernels' run-time instances) at the ragged, middle and finest shapes;
@@ -47,7 +49,8 @@ csrc/, then runs ten phases and prints one JSON object per phase line:
      (tests/test_batching.py's gate: every byte equal);
   J  the row-tiled stitch (parallel/tiled.py) in process at n = 4 on one
      card, against the untiled stitch, in turns (untiled, tiled, tiled,
-     untiled) after one warm run of each: J1 the stitch_four pair of phase
+     untiled) after warm_up of each (both forms are programs, so both
+     times are replays): J1 the stitch_four pair of phase
      H (pixflow_low, full canvas), J2 the second pair window of the
      9000x4000 chain (pixflow_low_fast, 4000x3584, flow tiles of 500
      rows).  Latency, peak memory and launches of both forms, the launches
@@ -58,7 +61,8 @@ csrc/, then runs ten phases and prints one JSON object per phase line:
      equal to the in-process form; else one line saying it was skipped;
   K  the captured programs (utils/programs.py) against programs.disable()
      for cell 1 (C's stitch), cell 2 (F's production stitch), H's
-     stitch_four and I's eight batched pairs: after programs.clear() the
+     stitch_four, I's eight batched pairs and J1 and J2 tiled (each run
+     right after its phase J line): after programs.clear() the
      key's first call (eager, kernels and caches warm from the earlier
      phases) and its second (capture, instantiation, first replay), then
      eager and program in turns (eager, program, program, eager):
@@ -95,8 +99,8 @@ Three shorter modes, each after phase A:
         a preset name (the 9000x4000 stitch_six), stitch4 (phase H's
         stitch), batched (phase I's 8 pairs, batched and one pair of the
         sequential form, and the launches of each stage in both forms) or
-        tiled (phase J's two pairs, each tiled and untiled; with the
-        host's calls that wait for the card)
+        tiled (phase J's two pairs, each tiled and untiled, both a
+        program's replay; with the host's calls that wait for the card)
     python3 chip_smoke.py --cli-against ROOT     the CLI, one fresh
         process a stitch (stitch6 of the 9000x4000 set with
         pixflow_low_fast, stitch4 at 2250x1000 with pixflow_low), of the
@@ -276,11 +280,13 @@ def bound(nbytes: int, ops: int) -> dict:
 def kernel_cases(dev, rng, b: int, h: int, w: int) -> list[dict]:
     """The five kernels on seeded inputs of (b, h, w) planes.  Each case
     has the wrapper's call (``kernel``), the plain version's (``plain``),
-    the tolerance, the bytes and operations of the bound, and for the warp
-    the one PyTorch call that computes the same function (``library``),
-    the torch ops its wrapper runs before the launch (``glue``) and the
-    wrapper's call on offsets made before (``launch``).  A ``check_only``
-    case is held against its plain version and not timed."""
+    the tolerance, the bytes and operations of the bound, for the warp and
+    median5 the one PyTorch call that computes the same function
+    (``library``; none computes median5+diffuse or a relax phase), and for
+    the warp the torch ops its wrapper runs before the launch (``glue``)
+    and the wrapper's call on offsets made before (``launch``).  A
+    ``check_only`` case is held against its plain version and not
+    timed."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -351,6 +357,11 @@ def kernel_cases(dev, rng, b: int, h: int, w: int) -> list[dict]:
         name="median5", dims=[2 * b, h, w], tol=0.0,
         kernel=lambda: kernels.median5(x),
         plain=lambda: kernels.median5_plain(x),
+        # the 25 values of each window of the edge-replicated plane, and
+        # their median
+        library=lambda: F.pad(x, (2, 2, 2, 2), mode="replicate").unfold(
+            1, 5, 1).unfold(2, 5, 1).reshape(2 * b, h, w, 25).median(
+                -1).values,
         nbytes=4 * 4 * px, ops=MEDIAN_OPS * 2 * px))
 
     shape = (b, h, w)
@@ -444,7 +455,8 @@ def phase_b(dev) -> dict:
                          **bound(case["nbytes"], case["ops"])}
                 if "library" in case:
                     timed["library_ms"] = cuda_ms(case["library"], 20)
-                    # equal where the residual stays inside its clamp
+                    # the warp: equal where the residual stays inside its
+                    # clamp; median5: equal
                     timed["library_max_abs_diff"] = \
                         (got - case["library"]()).abs().max().item()
                 if "glue" in case:
@@ -1146,7 +1158,8 @@ def agreement(out, ref) -> dict:
 
 def phase_j(dev, headline) -> dict:
     """The in-process row-tiled stitch at n = TILED_N against the untiled
-    stitch; returns J1's tiled launch counts."""
+    stitch, then phase K of each case's tiled program; returns J1's tiled
+    launch counts."""
     import torch
 
     from panorama_opticalflow_tpu_torch.models import pixflow
@@ -1198,7 +1211,10 @@ def phase_j(dev, headline) -> dict:
                   f"phase J {c['case']}: {name} never launched")
         if launches is None:
             launches = recs["tiled"][-1]["launches"]
-        del outs, forms, c
+        del outs
+        program_cell(f"tiled_{c['case']}", forms["tiled"], list(c["pair"]),
+                     expected["tiled"], (h, w))
+        del forms, c
         torch.cuda.empty_cache()
     if torch.cuda.device_count() >= 2:
         distributed(dev)

@@ -49,18 +49,22 @@ def _window_index(roll, width: int, w: int, device) -> torch.Tensor:
     return (torch.arange(width, device=device) + roll) % w
 
 
-def window_cols(a: torch.Tensor, roll, width: int) -> torch.Tensor:
-    """Columns [roll, roll + width) of ``a`` (circularly): the canvas rolled
-    left by ``roll``, cut to ``width``."""
-    return a.index_select(1, _window_index(roll, width, a.shape[1], a.device))
+def window_cols(a: torch.Tensor, roll, width: int,
+                dim: int = 1) -> torch.Tensor:
+    """Columns [roll, roll + width) of ``a`` along ``dim`` (circularly): the
+    canvas rolled left by ``roll``, cut to ``width``."""
+    return a.index_select(dim, _window_index(roll, width, a.shape[dim],
+                                             a.device))
 
 
-def place_cols(a_w: torch.Tensor, roll, w: int) -> torch.Tensor:
-    """``window_cols``'s inverse: the (H, width, ...) window at columns
-    [roll, roll + width) (circularly) of a zero canvas ``w`` wide."""
-    out = a_w.new_zeros((a_w.shape[0], w, *a_w.shape[2:]))
-    return out.index_copy_(1, _window_index(roll, a_w.shape[1], w,
-                                            a_w.device), a_w)
+def place_cols(a_w: torch.Tensor, roll, w: int, dim: int = 1) -> torch.Tensor:
+    """``window_cols``'s inverse: the window (``dim`` its columns) at
+    columns [roll, roll + width) (circularly) of a zero canvas ``w``
+    wide."""
+    shape = list(a_w.shape)
+    shape[dim] = w
+    return a_w.new_zeros(shape).index_copy_(
+        dim, _window_index(roll, a_w.shape[dim], w, a_w.device), a_w)
 
 
 def generate_blend(canvas_map: torch.Tensor, cfg: StitchConfig,

@@ -33,6 +33,11 @@ each extended tile's row 0.  The tiled blend ignores ``blend_scale``
 (``_tiled_generate_blend``).  What the reference's TPU machinery needs
 (hybrid flow mode, kernel gates inside shard_map, miscompile canaries, the
 rung scan) has no counterpart.
+
+On a card the in-process stitch (``InProcessRows``) is one captured
+program a static key (``utils.programs``), the counterpart of the
+reference's ``_tiled_stitch_jit``; a ``DistributedRows`` stitch runs
+eagerly (``tiled_stitch_pair``).
 """
 
 from __future__ import annotations
@@ -45,10 +50,13 @@ import numpy as np
 import torch
 
 from panorama_opticalflow_tpu_torch.models import novel_view, pixflow, stitcher
+from panorama_opticalflow_tpu_torch.models.stitcher import (place_cols,
+                                                          window_cols)
 from panorama_opticalflow_tpu_torch.ops import image as im
 from panorama_opticalflow_tpu_torch.ops.distance import (
     _shear, _strided_first_hit, _unshear, two_class_hole_search)
 from panorama_opticalflow_tpu_torch.parallel.mesh import InProcessRows, RowComm
+from panorama_opticalflow_tpu_torch.utils import programs
 from panorama_opticalflow_tpu_torch.utils.config import (FlowParams,
                                                          StitchConfig)
 
@@ -142,9 +150,7 @@ class RowResizePlan:
     halo: int           # source halo needed
     idx: np.ndarray     # (n * h_b, K) global source rows (clamped)
     w: np.ndarray       # (n * h_b, K) weights
-    # (tiles, extended rows, device) -> _plan_taps's tensors on the device
-    taps: dict = dataclasses.field(default_factory=dict, compare=False,
-                                   repr=False)
+    args: tuple         # make_row_resize_plan's (h_from, h_to, n, method)
 
 
 @functools.lru_cache(maxsize=None)
@@ -161,26 +167,27 @@ def make_row_resize_plan(h_from: int, h_to: int, n: int,
         rows = idx_p[d * h_b:(d + 1) * h_b]
         halo = max(halo, d * h_a - int(rows.min()),
                    int(rows.max()) - (d * h_a + h_a - 1))
-    return RowResizePlan(h_a, h_b, max(halo, 0), idx_p, w_p)
+    return RowResizePlan(h_a, h_b, max(halo, 0), idx_p, w_p,
+                         (h_from, h_to, n, method))
 
 
-def _plan_taps(plan: RowResizePlan, tiles: slice, ext_rows: int, device):
+@programs.device_constant
+def _plan_taps(plan_args: tuple, start: int, stop: int, ext_rows: int,
+               device: str):
     """(K, T, h_b) int64 local source rows, in halo-extended tiles of
-    ``ext_rows`` rows, of the tiles ``tiles``, and their (K, T, h_b)
-    weights, on ``device``; made once a plan, tiles and device (the plans
-    are cached), so a resize sends nothing to the device."""
-    key = (tiles.start, tiles.stop, ext_rows, str(device))
-    if key not in plan.taps:
-        n_k = plan.idx.shape[1]
-        g = np.arange(tiles.start, tiles.stop)[:, None, None]
-        rows = plan.idx.reshape(-1, plan.h_b, n_k)[tiles] \
-            - (g * plan.h_a - plan.halo)
-        local = np.clip(rows, 0, ext_rows - 1).astype(np.int64)
-        wts = plan.w.reshape(-1, plan.h_b, n_k)[tiles]
-        plan.taps[key] = tuple(
-            torch.from_numpy(np.ascontiguousarray(np.moveaxis(a, -1, 0))
-                             ).to(device) for a in (local, wts))
-    return plan.taps[key]
+    ``ext_rows`` rows, of the tiles [start, stop) of the plan
+    ``make_row_resize_plan(*plan_args)``, and their (K, T, h_b) weights, on
+    ``device``; made once, so a resize sends nothing to the device."""
+    plan = make_row_resize_plan(*plan_args)
+    tiles = slice(start, stop)
+    n_k = plan.idx.shape[1]
+    g = np.arange(start, stop)[:, None, None]
+    rows = plan.idx.reshape(-1, plan.h_b, n_k)[tiles] \
+        - (g * plan.h_a - plan.halo)
+    local = np.clip(rows, 0, ext_rows - 1).astype(np.int64)
+    wts = plan.w.reshape(-1, plan.h_b, n_k)[tiles]
+    return tuple(torch.from_numpy(np.ascontiguousarray(np.moveaxis(a, -1, 0))
+                                  ).to(device) for a in (local, wts))
 
 
 def _tiled_resize_rows(x: torch.Tensor, plan: RowResizePlan,
@@ -190,7 +197,9 @@ def _tiled_resize_rows(x: torch.Tensor, plan: RowResizePlan,
     sums them with the untiled resize's weights in its tap order
     (``image._resize_axis``), so it has the untiled resize's bits."""
     ext = comm.exchange_rows(x.float(), plan.halo)
-    local, wts = _plan_taps(plan, comm.tile_slice(), ext.shape[1], x.device)
+    tiles = comm.tile_slice()
+    local, wts = _plan_taps(plan.args, tiles.start, tiles.stop, ext.shape[1],
+                            str(x.device))
     trail = (1,) * (ext.dim() - 2)
     t_idx = torch.arange(local.shape[1], device=x.device)[:, None]
     acc = None
@@ -284,7 +293,7 @@ def _tiled_eight_ray_multi(masks: list, step: int, max_i: float,
     g_rows = torch.arange(h, device=masks[0].device)[None, :] + offs[:, None]
     row0 = (g_rows == 0)[:, :, None]                           # (T, h, 1)
     col0 = torch.zeros(w, dtype=torch.bool, device=masks[0].device)
-    col0[0] = True
+    col0[:1].fill_(True)
 
     d_x = []
     for mask in masks:
@@ -498,18 +507,6 @@ def tiled_compute_optical_flow(rgba0: torch.Tensor, rgba1: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _win(a: torch.Tensor, roll: int, width: int) -> torch.Tensor:
-    """Columns [roll, roll + width) (circularly) of (T, h, W, ...) tiles."""
-    return torch.roll(a, -roll, dims=2)[:, :, :width]
-
-
-def _unwin(a_w: torch.Tensor, roll: int, w: int) -> torch.Tensor:
-    """Inverse of ``_win`` onto a zero canvas of width ``w``."""
-    out = a_w.new_zeros(a_w.shape[:2] + (w,) + a_w.shape[3:])
-    out[:, :, :a_w.shape[2]] = a_w
-    return torch.roll(out, roll, dims=2)
-
-
 def _global_rows(comm: RowComm, h_loc: int, device,
                  halo: int = 0) -> torch.Tensor:
     """(T, h_loc + 2*halo, 1): the global row of each local row of tiles of
@@ -544,7 +541,7 @@ def _tiled_generate_blend(canvas_map: torch.Tensor, cfg: StitchConfig,
     windowed = window is not None and window[1] < w
     if windowed:
         roll, width = window
-        center = _win(canvas_map, roll, width)
+        center = window_cols(canvas_map, roll, width, dim=2)
         d_l, d_r = _tiled_eight_ray_multi(
             [(center == 100) & live, (center == 50) & live], step, max_i,
             math.sqrt(2.0), comm)
@@ -635,7 +632,7 @@ def _tiled_gather(canvas_map, image_l, image_r, merged, cfg: StitchConfig,
     code_l = torch.where(live, code, torch.full_like(code, 255))
     row0 = _global_rows(comm, h_loc, dev, halo=r) == 0
     black = torch.zeros((4,), dtype=torch.uint8, device=dev)
-    black[3] = 255
+    black[3:].fill_(255)
 
     def hole_from(codes, img_l, img_r):
         ext = comm.exchange_rows(codes, r, fill=255)
@@ -652,9 +649,9 @@ def _tiled_gather(canvas_map, image_l, image_r, merged, cfg: StitchConfig,
         hole = hole_from(code_l, image_l, image_r)
     else:
         roll, width = window
-        hole = _unwin(hole_from(_win(code_l, roll, width),
-                                _win(image_l, roll, width),
-                                _win(image_r, roll, width)), roll, w)
+        hole = place_cols(hole_from(*(window_cols(a, roll, width, dim=2)
+                                      for a in (code_l, image_l, image_r))),
+                          roll, w, dim=2)
 
     zero = torch.zeros((4,), dtype=torch.uint8, device=dev)
     out = torch.where((code == 100)[..., None], image_l, zero)
@@ -684,11 +681,12 @@ def _tiled_stitch_pair_body(image_l, image_r, *, cfg: StitchConfig,
         roll, width, gsafe = window
         blend_w, _ = _tiled_generate_blend(canvas_map, cfg, comm, h_global,
                                            window=(roll, width))
-        ol_w, or_w = _win(ol, roll, width), _win(orr, roll, width)
+        ol_w = window_cols(ol, roll, width, dim=2)
+        or_w = window_cols(orr, roll, width, dim=2)
         flr_w, frl_w = tiled_compute_optical_flow_pair(
             ol_w, or_w, params, hints, comm, h_global, tc)
-        merged = _unwin(_tiled_combine(ol_w, or_w, flr_w, frl_w, blend_w,
-                                       comm, tc), roll, w)
+        merged = place_cols(_tiled_combine(ol_w, or_w, flr_w, frl_w, blend_w,
+                                           comm, tc), roll, w, dim=2)
         return _tiled_gather(canvas_map, image_l, image_r, merged, cfg, comm,
                              h_global, window=(roll, width) if gsafe else None)
 
@@ -709,6 +707,32 @@ def _as_canvas(img, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(img, np.uint8)).to(device)
 
 
+def _tiled_stitch(image_l, image_r, cfg: StitchConfig, comm: RowComm,
+                  tc: TileConfig, window: tuple | None) -> torch.Tensor:
+    """The tiled stitch of global (H, W, 4) canvases: rows padded to a
+    multiple of n with transparent rows, this process's tiles stitched,
+    the panorama gathered and cropped back to H rows."""
+    h = image_l.shape[0]
+    h_loc = _cdiv(h, comm.n)
+    out = _tiled_stitch_pair_body(
+        _my_rows(image_l, h_loc, comm), _my_rows(image_r, h_loc, comm),
+        cfg=cfg, comm=comm, h_global=h, tc=tc, window=window)
+    return comm.all_gather_rows(out)[:h]
+
+
+def _tiled_stitch_program_body(image_l: torch.Tensor, image_r: torch.Tensor,
+                               *args) -> torch.Tensor:
+    """The in-process tiled stitch as one program (the counterpart of the
+    reference's ``_tiled_stitch_jit``): ``args`` is the window's roll (a
+    0-d int64 tensor, present only when ``width`` is not None), then n,
+    the TileConfig, the window's width (None: the whole canvas), its
+    gather flag and the config.  The padding to a multiple of n runs
+    inside, so the canvases' shape carries the global rows."""
+    *roll, n, tc, width, gather_safe, cfg = args
+    window = None if width is None else (roll[0], width, gather_safe)
+    return _tiled_stitch(image_l, image_r, cfg, InProcessRows(n), tc, window)
+
+
 def tiled_stitch_pair(image_l, image_r, cfg: StitchConfig, n: int,
                       comm: RowComm | None = None,
                       tc: TileConfig = TileConfig(),
@@ -721,21 +745,33 @@ def tiled_stitch_pair(image_l, image_r, cfg: StitchConfig, n: int,
     ``InProcessRows(n)`` (all tiles in this process); a ``DistributedRows``
     stitches this rank's tile and gathers the panorama on every rank.
     ``window`` is a planned (roll, width[, gather_safe]) overlap window,
-    e.g. from ``crop.pair_window`` or ``crop.plan_chain_windows``."""
+    e.g. from ``crop.pair_window`` or ``crop.plan_chain_windows``.
+
+    With an ``InProcessRows`` communicator the stitch is a program
+    (``utils.programs``) keyed by the canvases' shape, n, ``tc``, the
+    window's width and gather flag and ``cfg``; the roll is its input, so
+    one program serves every roll of a width.  A ``DistributedRows``
+    stitch runs eagerly, by its type: its collectives run under gloo on
+    CPU tensors, and NCCL collectives inside a CUDA graph are untried."""
     comm = InProcessRows(n) if comm is None else comm
     if comm.n != n:
         raise ValueError(f"n={n} but the communicator has {comm.n} tiles")
     image_l = _as_canvas(image_l, device)
     image_r = _as_canvas(image_r, device)
-    h = image_l.shape[0]
-    h_loc = _cdiv(h, n)
-    tiles_l = _my_rows(image_l, h_loc, comm)
-    tiles_r = _my_rows(image_r, h_loc, comm)
-    if window is not None:
-        window = tuple(window) if len(window) == 3 else (*window, False)
-    out = _tiled_stitch_pair_body(tiles_l, tiles_r, cfg=cfg, comm=comm,
-                                  h_global=h, tc=tc, window=window)
-    return comm.all_gather_rows(out)[:h]
+    width, gsafe, rolls = None, False, ()
+    if window is not None and window[1] < image_l.shape[1]:
+        roll, width, gsafe = (*window, False)[:3]
+        gsafe = bool(gsafe)
+        # a fill on the card: a copy from host memory would wait for the
+        # stream
+        rolls = (torch.full((), roll, dtype=torch.int64,
+                            device=image_l.device),)
+    if isinstance(comm, InProcessRows):
+        return programs.run(_tiled_stitch_program_body,
+                            (image_l, image_r, *rolls), n, tc, width, gsafe,
+                            cfg)
+    window = None if width is None else (*rolls, width, gsafe)
+    return _tiled_stitch(image_l, image_r, cfg, comm, tc, window)
 
 
 def tiled_stitch_pair_auto(image_l, image_r, cfg: StitchConfig, n: int,

@@ -18,7 +18,8 @@ the kernels (iteration counts, hat windows and blur widths beyond the
 unrolled ones) is held against the plain versions at the relax gate of
 the CPU's production tests (1e-5 on all but <= 5e-4 of the pixels: flipped
 takes grow with the iterations).  The row-tiled stitch on the card is held
-against the untiled stitch at the gates of tests/test_tiled.py.
+against the untiled stitch at the gates of tests/test_tiled.py, and as a
+program against its eager run byte for byte.
 """
 
 import os
@@ -500,6 +501,38 @@ def test_program_replays_give_the_eager_bytes(cuda):
         assert programs.info()[0]["replays"] == 2, name
         for call in calls:
             assert torch.equal(call, eager), name
+    programs.clear()
+
+
+def test_tiled_program_replays_give_the_eager_bytes(cuda):
+    """The in-process row-tiled stitch (n = 4, finest flow level tiled, the
+    kernels on the tile stacks) as a program: every replay of the full
+    canvas's key, and every call at two rolls of one window width (one
+    program), equals its programs.disable() run byte for byte."""
+    from panorama_opticalflow_tpu_torch.parallel import tiled
+
+    photos = synthesize_four_input_set(256, 320, seed=1)
+    il, ir = pipeline.compose_four([to_torch(p, cuda) for p in photos])
+    cfg = with_flow_params(StitchConfig(flow_alg="pixflow_low"),
+                           pallas_min_pixels=0)
+    tc = tiled.TileConfig(8, 24)
+    eager, *calls = _eager_then_thrice(
+        lambda: tiled.tiled_stitch_pair(il, ir, cfg, 4, tc=tc))
+    assert len(programs.keys()) == 1
+    assert programs.info()[0]["replays"] == 2
+    assert programs.info()[0]["launches_a_replay"]["relax_phase"] > 0
+    for call in calls:
+        assert torch.equal(call, eager)
+    programs.clear()
+    for roll in (32, 96, 32, 96):
+        got = tiled.tiled_stitch_pair(il, ir, cfg, 4, tc=tc,
+                                      window=(roll, 256, True))
+        with programs.disable():
+            want = tiled.tiled_stitch_pair(il, ir, cfg, 4, tc=tc,
+                                           window=(roll, 256, True))
+        assert torch.equal(got, want), roll
+    assert len(programs.keys()) == 1
+    assert programs.info()[0]["replays"] == 3
     programs.clear()
 
 

@@ -8,12 +8,14 @@ captured body may not do, the keys, the bound of the cache, and parity.
   ``Tensor.cpu``/``numpy``/``tolist``.  A CUDA graph holds none of them:
   each waits for the card or reads the host.
 * Keys: one a change of config, window width or gather flag, shape, dtype
-  or stack size, and one for the same of everything else (a window's roll
-  is an input, as the JAX package traces it).
+  or stack size, and for the tiled program of tiles or TileConfig; one for
+  the same of everything else (a window's roll is an input, as the JAX
+  package traces it).
 * The cache: a key's first call is eager, its second captures; the bound
   evicts; a program holds the card-side constants its first call read.
 * Parity: on the CPU a program is its body, so its bytes equal
-  ``programs.disable()``'s; the chain program against the JAX package's
+  ``programs.disable()``'s (the tiled stitch's too; a ``DistributedRows``
+  stitch never reaches ``programs.run``); the chain program against the JAX package's
   single-dispatch chain (``_chain_windowed_jit``) at the golden gate of
   tests/test_golden.py (alpha footprint exact, SSIM >= 0.995, < 1 % of
   values off by more than 8), at 96 x 320.
@@ -35,6 +37,7 @@ from panorama_opticalflow_tpu_torch import (StitchConfig, ssim,
                                             synthesize_four_input_set,
                                             to_numpy, to_torch)
 from panorama_opticalflow_tpu_torch.models import crop, pipeline
+from panorama_opticalflow_tpu_torch.parallel import mesh, tiled
 from panorama_opticalflow_tpu_torch.utils import programs, runtime
 from panorama_opticalflow_tpu_torch.utils.config import with_flow_params
 
@@ -76,6 +79,26 @@ def _case(name):
         rolls = torch.tensor([r for r, _, _ in windows])
         return pipeline._chain_body, (top, rolls, *photos), \
             (tuple((wd, g) for _, wd, g in windows), fast)
+    if name == "tiled 384x320 n=4":
+        # tall enough that the finest flow levels run tiled
+        il, ir = pipeline.compose_four([to_torch(p, "cpu") for p in
+                                        synthesize_four_input_set(
+                                            384, 320, seed=11)])
+        return tiled._tiled_stitch_program_body, (il, ir), \
+            (4, tiled.TileConfig(16, 32), None, False, StitchConfig())
+    if name == "tiled window 128x640 n=4":
+        # the 6-photo chain's second pair on its planned window
+        photos, top = synthesize_fisheye_set(128, 640, n=5, seed=3)
+        tp = [to_torch(p, "cpu") for p in photos]
+        top = to_torch(top, "cpu")
+        cfg = StitchConfig()
+        wins = crop.plan_chain_windows(tp, top, cfg)
+        r0 = pipeline.stitch_pair_auto(tp[0], top, cfg, window=wins[0],
+                                       device="cpu")
+        roll, width, gsafe = wins[1]
+        assert width < 640
+        return tiled._tiled_stitch_program_body, (tp[1], r0, _roll(roll)), \
+            (4, tiled.TileConfig(8, 32), width, gsafe, cfg)
     if name.startswith("full N="):
         n = int(name[7:])
         return pipeline._stitch_pair_full_body, (
@@ -99,7 +122,8 @@ class _Recorder(TorchDispatchMode):
 
 @pytest.mark.parametrize("name", [
     "pair pixflow_low_fast", "pair pixflow_low", "pair pixflow_search_20_fast",
-    "pair narrow window", "chain", "full N=1", "full N=2", "compose_four"])
+    "pair narrow window", "chain", "full N=1", "full N=2", "compose_four",
+    "tiled 384x320 n=4", "tiled window 128x640 n=4"])
 def test_body_is_capture_safe(name, monkeypatch):
     body, tensors, static = _case(name)
     body(*tensors, *static)   # warm: fills the device-side caches
@@ -175,6 +199,38 @@ def test_keys_change_with_every_static_value_and_nothing_else():
     assert chain != programs.key(pipeline._chain_body,
                                  (top, rolls[:4], *photos[:4]),
                                  (shapes[:4], fast))
+
+
+def test_tiled_keys_change_with_every_static_value_and_nothing_else():
+    """The tiled program's key: the static values of the reference's
+    ``_tiled_stitch_jit`` with the mesh reduced to n (the global rows are
+    the canvases' shape); not the roll, not the data."""
+    l, r = (torch.zeros((96, 320, 4), dtype=torch.uint8) for _ in range(2))
+    body = tiled._tiled_stitch_program_body
+    tc = tiled.TileConfig(16, 32)
+    fast = StitchConfig(flow_alg="pixflow_low_fast")
+    win = (l, r, _roll(0))
+    base = programs.key(body, win, (4, tc, 256, False, fast))
+    changed = [
+        programs.key(body, win, (8, tc, 256, False, fast)),
+        programs.key(body, win, (4, tiled.TileConfig(8, 32), 256, False,
+                                 fast)),
+        programs.key(body, win, (4, tiled.TileConfig(16, 48), 256, False,
+                                 fast)),
+        programs.key(body, (l[:64], r[:64], _roll(0)),
+                     (4, tc, 256, False, fast)),
+        programs.key(body, win, (4, tc, 192, False, fast)),
+        programs.key(body, win, (4, tc, 256, True, fast)),
+        programs.key(body, win, (4, tc, 256, False, StitchConfig())),
+        programs.key(body, (l, r), (4, tc, None, False, fast)),
+    ]
+    keys = [base, *changed]
+    assert len(set(keys)) == len(keys)
+    same = [programs.key(body, (l, r, _roll(32)), (4, tc, 256, False, fast)),
+            programs.key(body, (l + 1, r + 2, _roll(0)),
+                         (4, tiled.TileConfig(16, 32), 256, False,
+                          StitchConfig(flow_alg="pixflow_low_fast")))]
+    assert all(k == base for k in same)
 
 
 class _Stand:
@@ -313,8 +369,53 @@ def test_card_side_constants_are_held_by_programs():
                 held.append(attr)
                 assert fn.cache_info().maxsize == programs.CONSTANTS
     assert bare == []
-    assert {"_pad_index", "_resize_axis_taps", "_search_candidates"} <= \
-        set(held)
+    assert {"_pad_index", "_resize_axis_taps", "_search_candidates",
+            "_plan_taps"} <= set(held)
+
+
+def test_tiled_stitch_is_one_program_a_width(stand_in, tmp_path,
+                                            monkeypatch):
+    """In process, ``tiled_stitch_pair``'s first call of a key runs
+    eagerly, its second makes the program, and two rolls of one width share
+    it; every result equals the ``programs.disable()`` bytes.  A
+    ``DistributedRows`` stitch (a gloo group of one rank) never reaches
+    ``programs.run`` and equals the in-process bytes."""
+    import torch.distributed as dist
+
+    il, ir = pipeline.compose_four([to_torch(p, "cpu") for p in
+                                    synthesize_four_input_set(96, 320,
+                                                              seed=1)])
+    cfg = StitchConfig()
+    tc = tiled.TileConfig(8, 24)
+    got = {}
+    for roll in (32, 96, 32):
+        out = tiled.tiled_stitch_pair(il, ir, cfg, 4, tc=tc,
+                                      window=(roll, 256), device="cpu")
+        assert roll not in got or torch.equal(out, got[roll])
+        got[roll] = out
+    assert stand_in == [(4, tc, 256, False, cfg)]
+    assert len(programs.keys()) == 1
+    with programs.disable():
+        for roll, out in got.items():
+            assert torch.equal(out, tiled.tiled_stitch_pair(
+                il, ir, cfg, 4, tc=tc, window=(roll, 256), device="cpu"))
+        in_process = tiled.tiled_stitch_pair(il, ir, cfg, 1, tc=tc,
+                                             window=(32, 256, True),
+                                             device="cpu")
+
+    def refused(*args):
+        raise AssertionError("a DistributedRows stitch reached programs.run")
+
+    monkeypatch.setattr(programs, "run", refused)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        out = tiled.tiled_stitch_pair(il, ir, cfg, 1, mesh.DistributedRows(),
+                                      tc, window=(32, 256, True),
+                                      device="cpu")
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(out, in_process)
 
 
 def test_programs_equal_disabled_bytes_on_cpu():

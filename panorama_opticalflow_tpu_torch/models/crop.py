@@ -14,6 +14,7 @@ import torch
 
 from panorama_opticalflow_tpu_torch.utils.config import StitchConfig
 from panorama_opticalflow_tpu_torch.models.stitcher import window_cols
+from panorama_opticalflow_tpu_torch.utils import trace
 
 _WIDTH_QUANTUM = 256
 
@@ -86,7 +87,9 @@ def gather_window_safe(cols: np.ndarray, roll: int, width: int,
 
 def overlap_columns(canvas_map: torch.Tensor) -> np.ndarray:
     """Per-column 'has overlap' flags, fetched to the host."""
-    return (canvas_map == 150).any(dim=0).cpu().numpy()
+    cols = (canvas_map == 150).any(dim=0)
+    trace.host_sync()
+    return cols.cpu().numpy()
 
 
 def pair_window(canvas_map: torch.Tensor, cfg: StitchConfig,
@@ -120,6 +123,7 @@ def plan_chain_windows(photos: list[torch.Tensor], top: torch.Tensor,
         al = p[..., 3] > 0
         cols.append((al & acc).any(dim=0))
         acc = acc | al
+    trace.host_sync()
     cols = torch.stack(cols).cpu().numpy()
     h, w = top.shape[:2]
     step = blend_step(h, w, cfg)
@@ -142,6 +146,8 @@ def cropped_flows_window(image_l: torch.Tensor, image_r: torch.Tensor,
 
     if width >= image_l.shape[1]:
         return prepare_flows(image_l, image_r, cfg)
-    return compute_optical_flow_pair(window_cols(image_l, roll, width),
-                                     window_cols(image_r, roll, width),
-                                     cfg.flow_params, "left", "right")
+    with trace.span("pair.flow_prep", stage=True):
+        window_l = window_cols(image_l, roll, width)
+        window_r = window_cols(image_r, roll, width)
+    return compute_optical_flow_pair(window_l, window_r, cfg.flow_params,
+                                     "left", "right")

@@ -12,6 +12,7 @@ from panorama_opticalflow_tpu_torch.models.pixflow import (
 from panorama_opticalflow_tpu_torch.ops import image as im
 from panorama_opticalflow_tpu_torch.ops.warp import (
     sample_nearest_wrap, sample_nearest_wrap_tiled)
+from panorama_opticalflow_tpu_torch.utils import trace
 
 # Deghost constants (CPU/OpticalFlow.cpp:57-59)
 K_COLOR_DIFF_COEF = 10.0
@@ -34,10 +35,11 @@ def prepare_flows(image_l: torch.Tensor, image_r: torch.Tensor,
     length = image_l.shape[-2] // cfg.flow_extend_div
     solve = (compute_optical_flow_pairs if image_l.dim() == 4
              else compute_optical_flow_pair)
-    flow_lr, flow_rl = solve(
-        im.wrap_extend_x(image_l, length, -2),
-        im.wrap_extend_x(image_r, length, -2),
-        cfg.flow_params, "left", "right")
+    with trace.span("pair.flow_prep", stage=True):
+        wide_l = im.wrap_extend_x(image_l, length, -2)
+        wide_r = im.wrap_extend_x(image_r, length, -2)
+    flow_lr, flow_rl = solve(wide_l, wide_r, cfg.flow_params, "left",
+                             "right")
     return im.crop_x(flow_lr, length, -2), im.crop_x(flow_rl, length, -2)
 
 

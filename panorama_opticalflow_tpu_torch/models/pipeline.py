@@ -18,6 +18,14 @@ the whole chain (``_chain_windowed_jit``) keyed by the planned widths
 (the rolls are an input of both, as the reference traces them), and the
 full-canvas pass (the jitted ``stitch_pair``) keyed by the stack's N.  The
 window planning reads the host and stays outside them.
+
+The spans (``utils.trace``): an entry's call is ``stitch.six``,
+``stitch.four`` or ``stitch.pairs``, with the window plan (``plan``) and
+``compose_four`` (``compose``) inside; a pair body's stages, whose
+device boundaries a captured program keeps, are ``pair.blend``,
+``pair.flow_*`` (the flow's own, in ``crop``, ``novel_view`` and
+``pixflow``), ``pair.novel_view`` and ``pair.composite``.  They tile the
+body: every operation it launches runs inside one of them.
 """
 
 from __future__ import annotations
@@ -34,7 +42,7 @@ from panorama_opticalflow_tpu_torch.ops import image as im
 from panorama_opticalflow_tpu_torch.models import crop, novel_view, stitcher
 from panorama_opticalflow_tpu_torch.models.stitcher import (place_cols,
                                                           window_cols)
-from panorama_opticalflow_tpu_torch.utils import programs
+from panorama_opticalflow_tpu_torch.utils import programs, trace
 
 
 def _as_canvas(img, device) -> torch.Tensor:
@@ -48,12 +56,16 @@ def _stitch_pair_full(image_l: torch.Tensor, image_r: torch.Tensor,
     """One full-canvas pass over a pair, or over two (N, H, W, 4) stacks of
     N pairs (every stage takes either): the output and the intermediates
     the reference can dump."""
-    ctx = stitcher.prepare(image_l, image_r, cfg)
+    with trace.span("pair.blend", stage=True):
+        ctx = stitcher.prepare(image_l, image_r, cfg)
     flow_lr, flow_rl = novel_view.prepare_flows(ctx.overlapped_l,
                                                 ctx.overlapped_r, cfg)
-    merged = novel_view.combine_novel_views(
-        ctx.overlapped_l, ctx.overlapped_r, flow_lr, flow_rl, ctx.blend)
-    out = stitcher.gather_composite(ctx.map, image_l, image_r, merged, cfg)
+    with trace.span("pair.novel_view", stage=True):
+        merged = novel_view.combine_novel_views(
+            ctx.overlapped_l, ctx.overlapped_r, flow_lr, flow_rl, ctx.blend)
+    with trace.span("pair.composite", stage=True):
+        out = stitcher.gather_composite(ctx.map, image_l, image_r, merged,
+                                        cfg)
     return out, {
         "Map": ctx.map,
         "Blend": ctx.blend,
@@ -87,8 +99,9 @@ def stitch_pairs(images_l, images_r, cfg: StitchConfig,
     pyramid descent on a leading batch of 2N, and the blend field, the
     combiner and the composite run on the stacks.  On a card one program
     a stack size N."""
-    return stitch_pair(_as_canvas(images_l, device),
-                       _as_canvas(images_r, device), cfg)
+    with trace.span("stitch.pairs"):
+        return stitch_pair(_as_canvas(images_l, device),
+                           _as_canvas(images_r, device), cfg)
 
 
 def stitch_pair_debug(image_l, image_r, cfg: StitchConfig,
@@ -143,20 +156,23 @@ def _stitch_pair_windowed_body(image_l: torch.Tensor,
     canvas.  ``roll`` is an int or a 0-d int64 tensor on the canvases'
     device, as it is traced in the reference."""
     w = image_l.shape[1]
-    canvas_map = stitcher.match_images(image_l, image_r)
-    ol = stitcher.extract_overlap(image_l, canvas_map)
-    orr = stitcher.extract_overlap(image_r, canvas_map)
-    blend_w, _ = stitcher.generate_blend(canvas_map, cfg,
-                                         window=(roll, width))
+    with trace.span("pair.blend", stage=True):
+        canvas_map = stitcher.match_images(image_l, image_r)
+        ol = stitcher.extract_overlap(image_l, canvas_map)
+        orr = stitcher.extract_overlap(image_r, canvas_map)
+        blend_w, _ = stitcher.generate_blend(canvas_map, cfg,
+                                             window=(roll, width))
     flow_lr_w, flow_rl_w = crop.cropped_flows_window(ol, orr, roll, width,
                                                      cfg)
-    merged_w = novel_view.combine_novel_views(
-        window_cols(ol, roll, width), window_cols(orr, roll, width),
-        flow_lr_w, flow_rl_w, blend_w)
-    merged = place_cols(merged_w, roll, w)
+    with trace.span("pair.novel_view", stage=True):
+        merged_w = novel_view.combine_novel_views(
+            window_cols(ol, roll, width), window_cols(orr, roll, width),
+            flow_lr_w, flow_rl_w, blend_w)
+        merged = place_cols(merged_w, roll, w)
     window = (roll, width) if gather_safe else None
-    return stitcher.gather_composite(canvas_map, image_l, image_r, merged,
-                                     cfg, window=window)
+    with trace.span("pair.composite", stage=True):
+        return stitcher.gather_composite(canvas_map, image_l, image_r,
+                                         merged, cfg, window=window)
 
 
 def stitch_pair_windowed(image_l: torch.Tensor, image_r: torch.Tensor,
@@ -181,8 +197,9 @@ def stitch_pair_auto(image_l, image_r, cfg: StitchConfig,
     image_l = _as_canvas(image_l, device)
     image_r = _as_canvas(image_r, device)
     if window is None:
-        window = crop.pair_window(stitcher.match_images(image_l, image_r),
-                                  cfg)
+        with trace.span("plan"):
+            window = crop.pair_window(
+                stitcher.match_images(image_l, image_r), cfg)
     roll, width, gsafe = window
     return stitch_pair_windowed(image_l, image_r, roll, width, gsafe, cfg)
 
@@ -219,28 +236,33 @@ def stitch_six(images: list, top, cfg: StitchConfig,
     With ``use_crop=False`` every pair is the full-canvas program.  With
     ``on_part`` the pairs run eagerly, one by one (the reference's split
     programs), under ``programs.disable()``."""
-    photos = [_as_canvas(p, device) for p in images]
-    result = _as_canvas(top, device)
-    windows = (crop.plan_chain_windows(photos, result, cfg) if use_crop
-               else [None] * len(photos))
-    if on_part is None and use_crop:
-        # each roll a fill on the card: a copy from host memory would wait
-        # for the stream
-        rolls = torch.stack([torch.full((), r, dtype=torch.int64,
-                                        device=result.device)
-                             for r, _, _ in windows])
-        return programs.run(_chain_body, (result, rolls, *photos),
-                            tuple((wd, g) for _, wd, g in windows), cfg)
-    with (programs.disable() if on_part is not None
-          else contextlib.nullcontext()):
-        for i, (image_l, window) in enumerate(zip(photos, windows), start=1):
-            if window is None:
-                result = stitch_pair(image_l, result, cfg)
-            else:
-                result = stitch_pair_windowed(image_l, result, *window, cfg)
-            if on_part is not None:
-                on_part(i, result)
-    return result
+    with trace.span("stitch.six"):
+        photos = [_as_canvas(p, device) for p in images]
+        result = _as_canvas(top, device)
+        windows = [None] * len(photos)
+        if use_crop:
+            with trace.span("plan"):
+                windows = crop.plan_chain_windows(photos, result, cfg)
+        if on_part is None and use_crop:
+            # each roll a fill on the card: a copy from host memory would
+            # wait for the stream
+            rolls = torch.stack([torch.full((), r, dtype=torch.int64,
+                                            device=result.device)
+                                 for r, _, _ in windows])
+            return programs.run(_chain_body, (result, rolls, *photos),
+                                tuple((wd, g) for _, wd, g in windows), cfg)
+        with (programs.disable() if on_part is not None
+              else contextlib.nullcontext()):
+            for i, (image_l, window) in enumerate(zip(photos, windows),
+                                                  start=1):
+                if window is None:
+                    result = stitch_pair(image_l, result, cfg)
+                else:
+                    result = stitch_pair_windowed(image_l, result, *window,
+                                                  cfg)
+                if on_part is not None:
+                    on_part(i, result)
+        return result
 
 
 def precrop_columns(image: torch.Tensor) -> torch.Tensor:
@@ -267,7 +289,10 @@ def stitch_four(images: list, cfg: StitchConfig,
     (H, W, 4) uint8 arrays or tensors, moved to ``device``; returns the
     (H, W, 4) uint8 panorama on ``device``.  With ``use_crop`` the pair
     runs on the window derived from its own canvas map."""
-    image_l, image_r = compose_four([_as_canvas(p, device) for p in images])
-    if use_crop:
-        return stitch_pair_auto(image_l, image_r, cfg, device=device)
-    return stitch_pair(image_l, image_r, cfg)
+    with trace.span("stitch.four"):
+        with trace.span("compose"):
+            image_l, image_r = compose_four([_as_canvas(p, device)
+                                             for p in images])
+        if use_crop:
+            return stitch_pair_auto(image_l, image_r, cfg, device=device)
+        return stitch_pair(image_l, image_r, cfg)

@@ -15,11 +15,19 @@ init-floor twin of the ``_fast`` presets) starts from zero flow, or from
 the brute-force search init of the ``pixflow_search_*`` presets, and
 runs the exact gather path; every other level the fast path of
 ``_level_core``.  ``compute_optical_flow`` solves one direction.
+
+The spans (``utils.trace``): the stages ``pair.flow_prep`` (downscale,
+pre-blur and pyramid; then, a second stretch, the final upsample),
+``pair.flow_coarsest``, and the other levels in one stage a run:
+``pair.flow_plain_levels`` below ``pallas_min_pixels``,
+``pair.flow_kernel_levels`` at or above it; within them a host range
+``flow.level`` a level, its size in the range's arguments.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 
 import numpy as np
 import torch
@@ -29,7 +37,7 @@ from panorama_opticalflow_tpu_torch.ops import image as im
 from panorama_opticalflow_tpu_torch.ops import kernels
 from panorama_opticalflow_tpu_torch.ops.relax_fast import relax_phase_fast
 from panorama_opticalflow_tpu_torch.ops.warp import bilinear_extend
-from panorama_opticalflow_tpu_torch.utils import programs
+from panorama_opticalflow_tpu_torch.utils import programs, trace
 
 
 def pyramid_sizes(h: int, w: int, params: FlowParams) -> list[tuple[int, int]]:
@@ -156,6 +164,25 @@ def _xy(f: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return f[..., 0].contiguous(), f[..., 1].contiguous()
 
 
+def _kernel_level(h: int, w: int, params: FlowParams) -> bool:
+    """Whether a refining level of h x w runs the hand-written kernels."""
+    return params.use_pallas and h * w >= params.pallas_min_pixels
+
+
+def _level_runs(sizes: list[tuple[int, int]], params: FlowParams):
+    """The levels below the coarsest, coarse to fine, in runs of one
+    stage: (stage span's name, level indices)."""
+    for kernel, levels in itertools.groupby(
+            range(len(sizes) - 2, -1, -1),
+            key=lambda lv: _kernel_level(*sizes[lv], params)):
+        yield ("pair.flow_kernel_levels" if kernel
+               else "pair.flow_plain_levels"), list(levels)
+
+
+def _level_span(size: tuple[int, int]):
+    return trace.span("flow.level", f"{size[0]}x{size[1]}")
+
+
 def _level_core(i0x: torch.Tensor, i0y: torch.Tensor, i1g: torch.Tensor,
                 a0: torch.Tensor, a1: torch.Tensor, flow: torch.Tensor,
                 params: FlowParams, coarsest: bool) -> torch.Tensor:
@@ -180,7 +207,7 @@ def _level_core(i0x: torch.Tensor, i0y: torch.Tensor, i1g: torch.Tensor,
              else params.relax_iters_per_phase)
 
     if params.relax_impl == "fast" and not coarsest:
-        kernel_level = params.use_pallas and h * w >= params.pallas_min_pixels
+        kernel_level = _kernel_level(h, w, params)
 
         def warp_b(f_base):
             # per-phase gradient recentring (batched over B)
@@ -468,20 +495,27 @@ def compute_optical_flow(rgba0: torch.Tensor, rgba1: torch.Tensor,
     h, w = rgba0.shape[:2]
     dh = int(h * params.downscale_factor)
     dw = int(w * params.downscale_factor)
-    i0, a0 = _preprocess(rgba0, params, (dh, dw))
-    i1, a1 = _preprocess(rgba1, params, (dh, dw))
-
     sizes = pyramid_sizes(dh, dw, params)
-    pyr = _build_pyramid(torch.stack([i0, i1, a0, a1]), sizes)
+    with trace.span("pair.flow_prep", stage=True):
+        i0, a0 = _preprocess(rgba0, params, (dh, dw))
+        i1, a1 = _preprocess(rgba1, params, (dh, dw))
+        pyr = _build_pyramid(torch.stack([i0, i1, a0, a1]), sizes)
 
-    n = len(sizes)
-    flow = patch_match_level(*pyr[n - 1], None, hint, params)
-    for level in range(n - 2, -1, -1):
-        flow = im.resize(flow, sizes[level], "cubic")
-        flow = flow * (1.0 / params.pyr_scale_factor)
-        flow = patch_match_level(*pyr[level], flow, hint, params)
-    return _from_planes(_final_flow(_as_planes(flow[None]), (h, w), params),
-                        1)[0]
+    top = len(sizes) - 1
+    with trace.span("pair.flow_coarsest", stage=True), \
+            _level_span(sizes[top]):
+        flow = patch_match_level(*pyr[top], None, hint, params)
+    for stage, levels in _level_runs(sizes, params):
+        with trace.span(stage, stage=True):
+            for level in levels:
+                with _level_span(sizes[level]):
+                    flow = im.resize(flow, sizes[level], "cubic")
+                    flow = flow * (1.0 / params.pyr_scale_factor)
+                    flow = patch_match_level(*pyr[level], flow, hint,
+                                             params)
+    with trace.span("pair.flow_prep", stage=True):
+        return _from_planes(_final_flow(_as_planes(flow[None]), (h, w),
+                                        params), 1)[0]
 
 
 def compute_optical_flow_pairs(rgba0: torch.Tensor, rgba1: torch.Tensor,
@@ -495,27 +529,36 @@ def compute_optical_flow_pairs(rgba0: torch.Tensor, rgba1: torch.Tensor,
     n, h, w = rgba0.shape[:3]
     dh = int(h * params.downscale_factor)
     dw = int(w * params.downscale_factor)
-    g0, a0 = _preprocess(rgba0, params, (dh, dw))
-    g1, a1 = _preprocess(rgba1, params, (dh, dw))
 
     def interleave(x0, x1):
         return torch.stack([x0, x1], dim=1).reshape(2 * n, dh, dw)
 
     sizes = pyramid_sizes(dh, dw, params)
-    p_g = _build_pyramid(interleave(g0, g1), sizes)
-    p_a = _build_pyramid(interleave(a0, a1), sizes)
+    with trace.span("pair.flow_prep", stage=True):
+        g0, a0 = _preprocess(rgba0, params, (dh, dw))
+        g1, a1 = _preprocess(rgba1, params, (dh, dw))
+        p_g = _build_pyramid(interleave(g0, g1), sizes)
+        p_a = _build_pyramid(interleave(a0, a1), sizes)
     hints = (hint01, hint10)
 
     top = len(sizes) - 1
-    flow = patch_match_level_batched(p_g[top], p_a[top], None, hints, params)
-    for level in range(top - 1, -1, -1):
-        flow = _from_planes(im.resize_planes(_as_planes(flow), sizes[level],
-                                             "cubic"), 2 * n)
-        flow = flow * (1.0 / params.pyr_scale_factor)
-        flow = patch_match_level_batched(p_g[level], p_a[level], flow, hints,
+    with trace.span("pair.flow_coarsest", stage=True), \
+            _level_span(sizes[top]):
+        flow = patch_match_level_batched(p_g[top], p_a[top], None, hints,
                                          params)
+    for stage, levels in _level_runs(sizes, params):
+        with trace.span(stage, stage=True):
+            for level in levels:
+                with _level_span(sizes[level]):
+                    flow = _from_planes(im.resize_planes(
+                        _as_planes(flow), sizes[level], "cubic"), 2 * n)
+                    flow = flow * (1.0 / params.pyr_scale_factor)
+                    flow = patch_match_level_batched(
+                        p_g[level], p_a[level], flow, hints, params)
 
-    flow = _from_planes(_final_flow(_as_planes(flow), (h, w), params), 2 * n)
+    with trace.span("pair.flow_prep", stage=True):
+        flow = _from_planes(_final_flow(_as_planes(flow), (h, w), params),
+                            2 * n)
     flow = flow.view(n, 2, h, w, 2)
     return flow[:, 0], flow[:, 1]
 

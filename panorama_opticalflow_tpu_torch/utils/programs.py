@@ -46,7 +46,12 @@ Python does not run on a replay, so the kernel wrappers' launch counters
 (``ops.kernels``) would not see it.  A program records what each counter
 counted while it was captured, takes that back (nothing ran), and adds it
 on every replay: the counters count the launches that ran on the card,
-each call's once.
+each call's once.  For the same reason a program keeps the boundaries of
+its body's stage spans (``utils.trace``), captured as event nodes, and
+hands them to the tracer after each replay.  A key's eager call, a capture
+(with the graph's instantiation) and a replay (copy-in, replay, copy-out)
+are the spans ``program.eager``, ``program.capture`` and
+``program.replay``.
 """
 
 from __future__ import annotations
@@ -54,9 +59,10 @@ from __future__ import annotations
 import collections
 import contextlib
 import functools
-import time
 
 import torch
+
+from panorama_opticalflow_tpu_torch.utils import trace
 
 # programs held at once, each with its body's peak allocation: a 6-photo
 # chain's five pair programs (a width and gather flag each, at worst) and
@@ -104,10 +110,9 @@ def keys() -> list[tuple]:
 
 
 def info() -> list[dict]:
-    """Each captured program's name, its capture's costs in seconds (the
-    capture, the graph's instantiation), its replays, the card-side
-    constants it holds and the kernel launches one replay adds; least
-    recently used first."""
+    """Each captured program's name, its replays, the card-side constants
+    it holds and the kernel launches one replay adds; least recently used
+    first."""
     return [p.info() for p in _cache.values()]
 
 
@@ -169,7 +174,7 @@ def run(body, tensors, *static):
     if prog is None:
         constants = _seen.pop(k, None)
         if constants is None:
-            with _reading({}) as constants:
+            with trace.span("program.eager"), _reading({}) as constants:
                 out = body(*tensors, *static)
             _seen[k] = constants
             while len(_seen) > SEEN_KEYS:
@@ -177,8 +182,10 @@ def run(body, tensors, *static):
             return out
         while len(_cache) >= MAX_PROGRAMS:
             _cache.popitem(last=False)
-        prog = _Program(body, tensors, static, constants)
-    out = prog(tensors)
+        with trace.span("program.capture"):
+            prog = _Program(body, tensors, static, constants)
+    with trace.span("program.replay"):
+        out = prog(tensors)
     _cache[k] = prog
     return out
 
@@ -217,12 +224,12 @@ class _Program:
         torch.cuda.synchronize(tensors[0].device)
         self.graph = torch.cuda.CUDAGraph()
         before = _launch_counts()
-        t0 = time.perf_counter()
         try:
-            with _reading(constants), torch.cuda.graph(
-                    self.graph, capture_error_mode="thread_local"):
+            with _reading(constants), \
+                    trace.capturing() as self.boundaries, \
+                    torch.cuda.graph(self.graph,
+                                     capture_error_mode="thread_local"):
                 self.outputs = body(*self.inputs, *static)
-                t1 = time.perf_counter()
         except Exception as e:
             raise ProgramError(f"program {self.name}: capture failed: "
                                f"{type(e).__name__}: {e}") from e
@@ -230,11 +237,10 @@ class _Program:
             after = _launch_counts()
             for k, n in before.items():
                 k.launches = n
-        t2 = time.perf_counter()
         self.launches = {k: after[k] - n for k, n in before.items()}
-        self.costs = {"capture_s": t1 - t0, "instantiate_s": t2 - t1}
 
     def __call__(self, tensors: tuple):
+        trace.settle(self.boundaries)
         for static, t in zip(self.inputs, tensors):
             static.copy_(t)
         try:
@@ -245,10 +251,11 @@ class _Program:
         for k, n in self.launches.items():
             k.launches += n
         self.replays += 1
+        trace.replayed(self.name, self.boundaries)
         return _clone(self.outputs)
 
     def info(self) -> dict:
-        return {"name": self.name, **self.costs, "replays": self.replays,
+        return {"name": self.name, "replays": self.replays,
                 "constants": len(self.constants),
                 "launches_a_replay": {k.__name__: n
                                       for k, n in self.launches.items()}}

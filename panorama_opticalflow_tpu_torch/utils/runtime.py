@@ -4,9 +4,10 @@ Counterpart of the reference's initOpticalFlow (CPU/util.cpp:48-120): glog
 becomes Python logging, the terminate handler and signal handlers with
 stack dumps become ``faulthandler`` on the same fatal signals, the wall
 timers ``perf_counter``.  ``StageTimer`` ends a stage on a card with
-``torch.cuda.synchronize()``, so a stage's time is its work's, and writes
-one ``torch.profiler`` Chrome trace a stage when PANOSTITCH_TRACE_DIR is
-set (the CLI's ``--profile_dir``).
+``torch.cuda.synchronize()``, so a stage's time is its work's, marks it
+as the span ``stage.<name>`` (``utils.trace``), and writes one
+``torch.profiler`` Chrome trace a stage, with the tracer recording, when
+PANOSTITCH_TRACE_DIR is set (the CLI's ``--profile_dir``).
 """
 
 from __future__ import annotations
@@ -59,9 +60,10 @@ def settle_cpu_math() -> None:
 
 class StageTimer:
     """Per-part and total wall timing (CPU/main.cpp:62,103-108) of work on
-    ``device``, plus a profiler trace a stage when PANOSTITCH_TRACE_DIR is
-    set: ``<dir>/<stage>.trace.json``, CPU activities and, on a card, CUDA
-    ones."""
+    ``device``, each part the span ``stage.<name>``, plus a profiler trace
+    a stage when PANOSTITCH_TRACE_DIR is set: ``<dir>/<stage>.trace.json``,
+    CPU activities and, on a card, CUDA ones, with the port's spans as
+    ``panostitch.`` ranges."""
 
     def __init__(self, device="cpu"):
         import torch
@@ -74,9 +76,12 @@ class StageTimer:
     def stage(self, name: str):
         import torch
 
+        from panorama_opticalflow_tpu_torch.utils import trace
+
         on_card = self.device.type == "cuda"
         trace_dir = os.environ.get("PANOSTITCH_TRACE_DIR")
         prof = None
+        recording = contextlib.nullcontext()
         if trace_dir:
             from torch.profiler import ProfilerActivity, profile
 
@@ -84,8 +89,10 @@ class StageTimer:
             if on_card:
                 acts.append(ProfilerActivity.CUDA)
             prof = profile(activities=acts)
+            recording = trace.recording()
         t = time.perf_counter()
-        with prof if prof is not None else contextlib.nullcontext():
+        with prof if prof is not None else contextlib.nullcontext(), \
+                recording, trace.span(f"stage.{name}"):
             yield
             if on_card:
                 torch.cuda.synchronize(self.device)

@@ -36,7 +36,7 @@ from panorama_opticalflow_tpu_torch import (StitchConfig,
 from panorama_opticalflow_tpu_torch.models import crop, pipeline
 from panorama_opticalflow_tpu_torch.ops import image as im
 from panorama_opticalflow_tpu_torch.ops import kernels as tk
-from panorama_opticalflow_tpu_torch.utils import programs
+from panorama_opticalflow_tpu_torch.utils import programs, trace
 from panorama_opticalflow_tpu_torch.utils.config import with_flow_params
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden",
@@ -642,6 +642,49 @@ def test_chain_body_does_not_wait_for_the_card(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+
+
+def test_replay_stage_times_tile_its_device_span(cuda):
+    """A captured chain keeps its stages' boundaries as event nodes (nine
+    stretches a pair: the blend, three of the flow's preparation, the
+    coarsest level, the plain and the kernel levels, the combiner and the
+    composite); in a recorded replay the stages' device times sum to the
+    replay's device span (first boundary to last), which lies inside the
+    call's own device span, and the replay's bytes equal an unrecorded
+    one's."""
+    photos, top = synthesize_fisheye_set(64, 1280, n=5, seed=0)
+    cfg = with_flow_params(StitchConfig(flow_alg="pixflow_low"),
+                           pallas_min_pixels=11000)
+
+    def run():
+        return pipeline.stitch_six(photos, top, cfg, device=cuda)
+
+    programs.clear()
+    run()
+    want = run()
+    (prog,) = programs._cache.values()
+    pair = ["pair.blend", "pair.flow_prep", "pair.flow_prep",
+            "pair.flow_coarsest", "pair.flow_plain_levels",
+            "pair.flow_kernel_levels", "pair.flow_prep", "pair.novel_view",
+            "pair.composite"]
+    assert [b[0] for b in prog.boundaries] == pair * 5
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with trace.recording() as rec:
+        start.record()
+        got = run()
+        end.record()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    (replay,) = rec.replays
+    assert [name for name, _, _ in replay.stages] == pair * 5
+    span = replay.stages[-1][2]
+    covered = sum(b - a for _, a, b in replay.stages)
+    assert all(b >= a >= 0 for _, a, b in replay.stages)
+    assert 0.97 * span <= covered <= span + 1e-3
+    assert span <= start.elapsed_time(end)
+    assert set(rec.stage_ms()) == set(pair)
+    programs.clear()
 
 
 def test_floor_twin_scale_by_two_floats_is_the_tensor_product(rng, cuda):

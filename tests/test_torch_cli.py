@@ -128,6 +128,10 @@ def test_cli_debug_dump_and_profile_dir(tmp_path):
     with open(os.path.join(prof, "Stitch.trace.json")) as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("name", "").startswith("aten::") for e in events)
+    # the port's spans: the stage's own and the debug pair's stages
+    names = {e.get("name", "") for e in events}
+    assert {"panostitch.stage.Stitch", "panostitch.pair.blend",
+            "panostitch.pair.flow_coarsest"} <= names
 
 
 def test_cli_stitch6_debug_dump_names_every_part(tmp_path):

@@ -7,8 +7,10 @@ Builds the hand-written CUDA kernels from panorama_opticalflow_tpu_torch/
 csrc/, then runs ten phases and prints one JSON object per phase line:
 
   A  the card (nvidia-smi name and power limit) and the kernel build;
-  B  each of the five kernels against its plain PyTorch version on the
-     card, at the 9000x4000 headline's finest-level shapes, at a middle
+  B  each of the six kernels against its plain PyTorch version on the
+     card (exact_level, every bit equal, at the cells' coarsest levels:
+     six, four and batch4's), at the 9000x4000 headline's finest-level
+     shapes, at a middle
      level of its pyramid and at a ragged small shape, with kernel and
      plain median times (CUDA events; the kernel table keeps the finest
      level's), the kernel's bound (bytes at the memory rate or operations at the float32
@@ -172,6 +174,7 @@ KERNEL_FILES = {
     "median5_diffuse": ("csrc/median5_diffuse.cu", 321),
     "relax_phase_unfused": ("csrc/relax_phase.cu", 732),
     "median5": ("csrc/median5.cu", 193),
+    "exact_level": ("csrc/exact_level.cu", None),
 }
 # the 36 MP fidelity harness's schedule knobs (tools/fidelity_36mp.py)
 SCHEDULES = {"production": {},
@@ -260,9 +263,23 @@ FP32_OPS_PER_S = 67e12
 #     window alone would take 101 exchanges; the kernels own runs of 8, at
 #     82.5 min/max a pixel.  The diffusion adds two 15-tap passes and the
 #     blend.
+#   exact level: an error evaluation 51 (clamped position 6, cell and
+#     fractions 4, a bilinear sum a channel 12, data and smoothness terms
+#     12, regularisation 4, the sum 3); an iteration 7 evaluations (own
+#     flow, 4 candidates, 2 for the gradient), 5 compares, 2 eps adds, the
+#     gradient and step 8; a phase's median a window alone, a channel 101
+#     exchanges; the target and the diffusion two 15-tap blurs of two
+#     channels each, and the blend 8.
 WARP_OPS = 12 + 2 * 12 + 2 * 9
 RELAX_OPS_PER_ITER = 18 + (5 * 36 + 3) + 30 + 75
 MEDIAN_OPS = 2 * 9 + 13 + 36
+EXACT_ERR_OPS = 6 + 4 + 2 * 12 + 12 + 4 + 3
+EXACT_ITER_OPS = 7 * EXACT_ERR_OPS + 5 + 2 + 8
+# phase B's exact_level shapes: the coarsest level of the six-photo
+# chain's pair windows, of the four-input canvas, and of four panoramas'
+# batched descent (the table keeps the four-input level's times)
+B_EXACT = (("six", (2, 30, 27)), ("four", (2, 27, 67)),
+           ("batch4", (8, 27, 67)))
 
 
 def bound(nbytes: int, ops: int) -> dict:
@@ -408,6 +425,43 @@ def kernel_cases(dev, rng, b: int, h: int, w: int) -> list[dict]:
     return cases
 
 
+def exact_cases(dev, rng, b: int, h: int, w: int) -> list[dict]:
+    """exact_level on a coarsest level of (b, h, w): textured images,
+    their blurred gradients, alphas with holes and a zero flow, the
+    pixflow_low schedule (4 phases of 15 iterations); its plain version is
+    the loop of PyTorch ops it replaces, so the gate is every bit equal."""
+    import numpy as np
+    import torch
+
+    from panorama_opticalflow_tpu_torch import flow_params_by_name
+    from panorama_opticalflow_tpu_torch.models import pixflow
+    from panorama_opticalflow_tpu_torch.ops import kernels
+
+    params = flow_params_by_name("pixflow_low")
+    phases = params.coarsest_relax_phases
+    iters = params.coarsest_relax_iters_per_phase
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    imgs = np.stack([0.5 + 0.2 * np.sin(xx / 3.1 + p) * np.cos(yy / 4.3)
+                     + 0.05 * rng.standard_normal((h, w))
+                     for p in rng.random(b) * 6]).astype(np.float32)
+    imgs = torch.from_numpy(imgs).to(dev)
+    alphas = np.ones((b, h, w), np.float32)
+    alphas[:, :, :w // 5] = 0.0
+    alphas = torch.from_numpy(alphas).to(dev)
+    gx, gy = pixflow._gradients(imgs, params)
+    level = (gx, gy, torch.stack([pixflow._partner(gx),
+                                  pixflow._partner(gy)], -1),
+             alphas, pixflow._partner(alphas),
+             torch.zeros((b, h, w, 2), device=dev), params, phases, iters)
+    kw = params.blurred_flow_kernel_width
+    ops = (phases * iters * EXACT_ITER_OPS + phases * 2 * 2 * 101
+           + 2 * 2 * 2 * 2 * kw + 8)
+    return [dict(name="exact_level", dims=[b, h, w], iters=iters, tol=0.0,
+                 kernel=lambda: kernels.exact_level(*level),
+                 plain=lambda: kernels.exact_level_plain(*level),
+                 nbytes=4 * 10 * b * h * w, ops=ops * b * h * w)]
+
+
 def as_tensor(out):
     import torch
 
@@ -424,8 +478,11 @@ def phase_b(dev) -> dict:
 
     rng = np.random.default_rng(0)
     results = {name: {"max_abs_err": 0.0} for name in KERNEL_FILES}
-    for tag, (b, h, w) in B_SHAPES + (B_BATCHED,):
-        for case in kernel_cases(dev, rng, b, h, w):
+    shapes = [(tag, shape, kernel_cases) for tag, shape in
+              B_SHAPES + (B_BATCHED,)] + [(tag, shape, exact_cases)
+                                         for tag, shape in B_EXACT]
+    for tag, (b, h, w), cases in shapes:
+        for case in cases(dev, rng, b, h, w):
             name = case["name"]
             if tag == "batched" and (name not in FUSED_PATH
                                      or case.get("check_only")):
@@ -448,7 +505,8 @@ def phase_b(dev) -> dict:
                 ok = share < case["max_share"]
             else:
                 ok = err <= case["tol"]
-            if tag in B_TIMED and not case.get("check_only"):
+            if (tag in B_TIMED or cases is exact_cases) \
+                    and not case.get("check_only"):
                 timed = {"ms": cuda_ms(case["kernel"], 20),
                          "plain_ms": cuda_ms(case["plain"], 5),
                          "library_ms": None,
@@ -463,7 +521,7 @@ def phase_b(dev) -> dict:
                     timed["glue_ms"] = cuda_ms(case["glue"], 20)
                     timed["launch_ms"] = cuda_ms(case["launch"], 20)
                 rec.update(timed)
-                if tag == "headline":   # the kernel table's shape
+                if tag in ("headline", "four"):   # the kernel table's shape
                     results[name].update(timed)
             results[name]["max_abs_err"] = max(err,
                                                results[name]["max_abs_err"])
@@ -661,7 +719,9 @@ def expected_launches(windows, canvas_h: int, params, tiles=None) -> dict:
     median5+diffuse once if it is a single-phase fused level, else the
     unfused relax and median5 once per phase.  With a raised pyramid floor
     (_fast) every level of pyramid_sizes is a fast level; otherwise the
-    coarsest is exact.  ``tiles`` = (n, TileConfig) counts the row-tiled
+    coarsest is exact.  The exact level (the coarsest, or the _fast
+    presets' init-floor twin) runs exact_level once where a block holds
+    it.  ``tiles`` = (n, TileConfig) counts the row-tiled
     stitch: a level runs tiled or whole by parallel.tiled.tiled_levels,
     and the pallas_min_pixels gate sees the shape its kernels get, a tiled
     level's halo-extended tile (ceil(rows / n) + 2 * halo rows).  In
@@ -677,6 +737,9 @@ def expected_launches(windows, canvas_h: int, params, tiles=None) -> dict:
         sizes = pixflow.pyramid_sizes(int(canvas_h * params.downscale_factor),
                                       int(width * params.downscale_factor),
                                       params)
+        exact = (pixflow._sub_floor_sizes(*sizes[-1], params)
+                 or sizes)[-1]
+        n["exact_level"] += pixflow._exact_kernel_level(*exact, params)
         if tiles is not None:
             nt, tc = tiles
             sizes = [(-(-h // nt) + 2 * tc.level_halo if t else h, w)
@@ -1292,7 +1355,8 @@ KERNEL_SYMBOLS = {"warp_tiled_kernel<": ("warp_tiled",),
                   "relax_phase_kernel<": ("relax_phase",
                                           "relax_phase_unfused"),
                   "median5_diffuse_kernel<": ("median5_diffuse",),
-                  "median5_kernel<": ("median5",)}
+                  "median5_kernel<": ("median5",),
+                  "exact_level_kernel(": ("exact_level",)}
 
 
 def profiled_launches(rows, counted: dict, expected: dict, tag: str) -> dict:
@@ -1549,8 +1613,9 @@ def main() -> None:
     emit({"kernels": [
         {"name": name, "route": "cuda",
          "source": "panorama_opticalflow_tpu_torch/" + KERNEL_FILES[name][0],
-         "replaces": "panorama_opticalflow_tpu/ops/pallas/kernels.py:"
-                     f"{KERNEL_FILES[name][1]}",
+         "replaces": ("panorama_opticalflow_tpu/ops/pallas/kernels.py:"
+                      f"{KERNEL_FILES[name][1]}" if KERNEL_FILES[name][1]
+                      else "none: kernel work beyond the JAX package"),
          "launches": launches[name],
          "launches_per_stitch": {alg: n[name]
                                  for alg, n in per_stitch.items()},

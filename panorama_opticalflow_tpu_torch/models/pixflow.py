@@ -13,8 +13,10 @@ compiles, and its border padding differs); the port matches the
 reference with ``scan_coarse_levels=False``.  The coarsest level (and the
 init-floor twin of the ``_fast`` presets) starts from zero flow, or from
 the brute-force search init of the ``pixflow_search_*`` presets, and
-runs the exact gather path; every other level the fast path of
-``_level_core``.  ``compute_optical_flow`` solves one direction.
+runs the exact gather path (``ops.relax_exact``; one CUDA kernel,
+``kernels.exact_level``, at the sizes a block holds); every other level
+the fast path of ``_level_core``.  ``compute_optical_flow`` solves one
+direction.
 
 The spans (``utils.trace``): the stages ``pair.flow_prep`` (downscale,
 pre-blur and pyramid; then, a second stretch, the final upsample),
@@ -35,8 +37,9 @@ import torch
 from panorama_opticalflow_tpu_torch.utils.config import FlowParams
 from panorama_opticalflow_tpu_torch.ops import image as im
 from panorama_opticalflow_tpu_torch.ops import kernels
+from panorama_opticalflow_tpu_torch.ops.relax_exact import (
+    _as_planes, _blur_flow, _from_planes, low_alpha_flow_diffusion)
 from panorama_opticalflow_tpu_torch.ops.relax_fast import relax_phase_fast
-from panorama_opticalflow_tpu_torch.ops.warp import bilinear_extend
 from panorama_opticalflow_tpu_torch.utils import programs, trace
 
 
@@ -77,88 +80,6 @@ def _build_pyramid(img: torch.Tensor,
     return pyr
 
 
-def error_function(cand: torch.Tensor, i0x: torch.Tensor, i0y: torch.Tensor,
-                   i1g: torch.Tensor, blurred_flow: torch.Tensor,
-                   params: FlowParams) -> torch.Tensor:
-    """errorFunction (CPU/PixFlow.hpp:427-456): ``cand`` and ``i1g`` are
-    (H, W, 2), returns the (H, W) error; or all with a leading batch of
-    directions."""
-    h, w = cand.shape[-3:-1]
-    xs = torch.arange(w, dtype=torch.float32, device=cand.device)[None, :]
-    ys = torch.arange(h, dtype=torch.float32, device=cand.device)[:, None]
-    g1 = bilinear_extend(i1g, xs + cand[..., 0], ys + cand[..., 1],
-                         batched=cand.dim() == 4)
-    dx = i0x - g1[..., 0]
-    dy = i0y - g1[..., 1]
-    data = torch.sqrt(dx * dx + dy * dy)
-    fd = blurred_flow - cand
-    smooth = torch.sqrt(fd[..., 0] * fd[..., 0] + fd[..., 1] * fd[..., 1])
-    reg = (params.vertical_regularization_coef * torch.abs(cand[..., 1])
-           + params.horizontal_regularization_coef
-           * torch.abs(cand[..., 0])) / w
-    return data + params.smoothness_coef * smooth + reg
-
-
-def _shift_with_valid(arr: torch.Tensor, dy: int, dx: int):
-    """out[..., y, x, :] = arr[..., y - dy, x - dx, :] of a flow, zero
-    outside; plus the (H, W) validity map."""
-    h, w = arr.shape[-3:-1]
-    out = torch.zeros_like(arr)
-    out[..., max(dy, 0):h + min(dy, 0), max(dx, 0):w + min(dx, 0), :] = \
-        arr[..., max(-dy, 0):h - max(dy, 0), max(-dx, 0):w - max(dx, 0), :]
-    yy = torch.arange(h, device=arr.device)[:, None]
-    xx = torch.arange(w, device=arr.device)[None, :]
-    valid = (yy - dy >= 0) & (yy - dy < h) & (xx - dx >= 0) & (xx - dx < w)
-    return out, valid
-
-
-def relax_iteration(flow, i0x, i0y, i1g, blurred_flow, update_mask,
-                    params: FlowParams) -> torch.Tensor:
-    """One Jacobi round: 4-neighbour propagation (strictly-better
-    proposals, CPU/PixFlow.hpp:342-362) + one finite-difference descent
-    step (CPU/PixFlow.hpp:364-386).  On one direction ((H, W, 2) flow,
-    (H, W) planes) or on a leading batch of directions, each iterated
-    exactly as alone: every op is a gather or elementwise."""
-    def err(c):
-        return error_function(c, i0x, i0y, i1g, blurred_flow, params)
-
-    best_flow = flow
-    best_err = err(flow)
-    for dy, dx in ((0, 1), (1, 0), (0, -1), (-1, 0)):
-        cand, valid = _shift_with_valid(flow, dy, dx)
-        e = torch.where(valid, err(cand), float("inf"))
-        take = e < best_err
-        best_flow = torch.where(take[..., None], cand, best_flow)
-        best_err = torch.where(take, e, best_err)
-
-    eps = params.grad_epsilon
-    zero = torch.zeros((), device=flow.device)
-    epsv = torch.full((), eps, device=flow.device)
-    ex = err(best_flow + torch.stack([epsv, zero]))
-    ey = err(best_flow + torch.stack([zero, epsv]))
-    grad = torch.stack([(ex - best_err) / eps, (ey - best_err) / eps], dim=-1)
-    new = best_flow - params.gradient_step_size * grad
-    return torch.where(update_mask[..., None], new, flow)
-
-
-def _as_planes(f: torch.Tensor) -> torch.Tensor:
-    """(B, H, W, 2) flow -> (2B, H, W) channel-split planes."""
-    b, h, w, _ = f.shape
-    return f.permute(0, 3, 1, 2).reshape(b * 2, h, w)
-
-
-def _from_planes(p: torch.Tensor, b: int) -> torch.Tensor:
-    _, h, w = p.shape
-    return p.reshape(b, 2, h, w).permute(0, 2, 3, 1).contiguous()
-
-
-def _blur_flow(flow: torch.Tensor, params: FlowParams) -> torch.Tensor:
-    nb = flow.shape[0]
-    return _from_planes(im.gaussian_blur(
-        _as_planes(flow), params.blurred_flow_kernel_width,
-        params.blurred_flow_sigma), nb)
-
-
 def _xy(f: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(B, H, W, 2) -> its two contiguous (B, H, W) channel planes."""
     return f[..., 0].contiguous(), f[..., 1].contiguous()
@@ -167,6 +88,13 @@ def _xy(f: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 def _kernel_level(h: int, w: int, params: FlowParams) -> bool:
     """Whether a refining level of h x w runs the hand-written kernels."""
     return params.use_pallas and h * w >= params.pallas_min_pixels
+
+
+def _exact_kernel_level(h: int, w: int, params: FlowParams) -> bool:
+    """Whether an exact level of h x w runs the hand-written kernel: its
+    planes fit one block's shared memory."""
+    return (params.use_pallas and min(h, w) >= 2
+            and h * w <= kernels.EXACT_LEVEL_MAX_PIXELS)
 
 
 def _level_runs(sizes: list[tuple[int, int]], params: FlowParams):
@@ -198,15 +126,19 @@ def _level_core(i0x: torch.Tensor, i0y: torch.Tensor, i1g: torch.Tensor,
     level ``kernels.relax_phase_unfused`` + ``kernels.median5`` per
     phase -- the reference's TPU branches, whatever the device: the
     wrappers pick the kernel or its plain version by where the tensors
-    live."""
+    live.  The coarsest level (and any ``relax_impl="exact"`` level) takes
+    the exact gather path: with ``params.use_pallas`` a level of at most
+    ``kernels.EXACT_LEVEL_MAX_PIXELS`` is the one kernel
+    ``kernels.exact_level``, any larger one the plain loop
+    (``kernels.exact_level_plain``)."""
     nb, h, w = i0x.shape
-    update_mask = ((a0 > params.update_alpha_threshold)
-                   & (a1 > params.update_alpha_threshold))
     phases = params.coarsest_relax_phases if coarsest else params.relax_phases
     iters = (params.coarsest_relax_iters_per_phase if coarsest
              else params.relax_iters_per_phase)
 
     if params.relax_impl == "fast" and not coarsest:
+        update_mask = ((a0 > params.update_alpha_threshold)
+                       & (a1 > params.update_alpha_threshold))
         kernel_level = _kernel_level(h, w, params)
 
         def warp_b(f_base):
@@ -250,26 +182,10 @@ def _level_core(i0x: torch.Tensor, i0y: torch.Tensor, i1g: torch.Tensor,
                     params, iters, D=params.fast_window)))
             flow = _from_planes(planes, nb)
     else:
-        blurred_flow = _blur_flow(flow, params)
-        for _ in range(phases):
-            f = flow
-            for _ in range(iters):
-                f = relax_iteration(f, i0x, i0y, i1g, blurred_flow,
-                                    update_mask, params)
-            flow = _from_planes(im.median5(_as_planes(f)), nb)
+        exact = (kernels.exact_level if _exact_kernel_level(h, w, params)
+                 else kernels.exact_level_plain)
+        return exact(i0x, i0y, i1g, a0, a1, flow, params, phases, iters)
     return low_alpha_flow_diffusion(flow, a0, a1, params)
-
-
-def low_alpha_flow_diffusion(flow: torch.Tensor, alpha0: torch.Tensor,
-                             alpha1: torch.Tensor,
-                             params: FlowParams) -> torch.Tensor:
-    """flow <- lerp(flow, gauss15x15sigma8(flow), 1 - a0*a1)
-    (CPU/PixFlow.hpp:388-405) on an (H, W, 2) flow and (H, W) alphas, or
-    on a leading batch of them; the blur runs on channel-split planes."""
-    blurred = _blur_flow(flow.reshape((-1,) + flow.shape[-3:]),
-                         params).reshape(flow.shape)
-    c = (1.0 - alpha0 * alpha1)[..., None]
-    return c * blurred + (1.0 - c) * flow
 
 
 # ---------------------------------------------------------------------------

@@ -50,6 +50,9 @@ _SIGNATURES = {
     "pano_relax_smem": ([_i] * 4, _ll),
     "pano_smem_limit": ([], _ll),
     "pano_median5_diffuse_smem": ([_i], _ll),
+    "pano_exact_level": ([_p] * 7 + [_i] * 5 + [_p, _i] + [_f] * 8 + [_p],
+                         _i),
+    "pano_exact_level_smem": ([_i], _ll),
 }
 
 

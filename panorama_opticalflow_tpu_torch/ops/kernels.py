@@ -10,6 +10,7 @@ wrapper                    replaces (reference Pallas kernel)      plain version
 ``relax_phase_unfused``    ``relax_phase_pallas(fuse_bf=False)``   ``relax_phase_unfused_plain``
 ``median5_diffuse``        ``median5_diffuse_pallas``              ``median5_diffuse_plain``
 ``median5``                ``median5_pallas``                      ``ops.image.median5``
+``exact_level``            none: kernel work beyond the reference  ``exact_level_plain``
 =========================  ======================================  ============================
 
 A wrapper checks its inputs and raises on anything the kernel does not
@@ -24,7 +25,8 @@ it launches the kernel (built from ``csrc/`` on first use, see
 fallback.  Each wrapper counts its kernel launches in its ``launches``
 attribute.  The plain versions compute exactly the kernel's contract,
 border semantics included (edge-replicated windows, not the validity
-masks and reflect-101 blurs of the plain level path, ``ops.relax_fast``).
+masks and reflect-101 blurs of the plain level path, ``ops.relax_fast``;
+``exact_level`` keeps those of the exact loop, ``ops.relax_exact``).
 """
 
 from __future__ import annotations
@@ -37,6 +39,9 @@ import torch
 from panorama_opticalflow_tpu_torch.utils.config import FlowParams
 from panorama_opticalflow_tpu_torch.ops.image import (gaussian_kernel_1d,
                                                       median5 as median5_plain)
+from panorama_opticalflow_tpu_torch.ops.relax_exact import (
+    _as_planes, _blur_flow, _from_planes, low_alpha_flow_diffusion,
+    relax_iteration)
 from panorama_opticalflow_tpu_torch.ops.relax_fast import (
     _pad2, sample_maps, shift_edge, tile_offsets, warp_by_flow_tiled)
 
@@ -46,6 +51,10 @@ WARP_MAX_OFF = 96
 # blur widths csrc/median5_diffuse.cu unrolls; any other width runs its
 # run-time instance
 DIFFUSE_WIDTHS = (3, 5, 7, 9, 11, 13, 15)
+# the largest exact level (h * w pixels) models/pixflow hands to the
+# exact_level kernel: one block holds every plane of a direction, 41 bytes
+# a pixel of shared memory (168 KB at this size; an H100 gives a block 227)
+EXACT_LEVEL_MAX_PIXELS = 4096
 
 
 def _check(name: str, tensors: dict, shapes: dict) -> torch.device:
@@ -476,8 +485,87 @@ def relax_phase_unfused(fx, fy, bx, by, w1x, w1y, i0x, i0y, bfx, bfy, mask,
 
 relax_phase_unfused.launches = 0
 
+# ---------------------------------------------------------------------------
+# 5. the exact relaxation of a small level, one block a direction
+# ---------------------------------------------------------------------------
+
+
+def exact_level_plain(i0x, i0y, i1g, a0, a1, flow, params: FlowParams,
+                      phases: int, iters: int) -> torch.Tensor:
+    """The exact level's contract on (B, H, W) planes with (B, H, W, 2)
+    ``i1g`` and ``flow``: the blurred-flow target of ``flow``, ``phases``
+    x (``iters`` ``relax_iteration`` rounds, then the 5x5 median), then
+    the low-alpha diffusion.  Returns the (B, H, W, 2) flow."""
+    nb = i0x.shape[0]
+    update_mask = ((a0 > params.update_alpha_threshold)
+                   & (a1 > params.update_alpha_threshold))
+    blurred_flow = _blur_flow(flow, params)
+    for _ in range(phases):
+        f = flow
+        for _ in range(iters):
+            f = relax_iteration(f, i0x, i0y, i1g, blurred_flow,
+                                update_mask, params)
+        flow = _from_planes(median5_plain(_as_planes(f)), nb)
+    return low_alpha_flow_diffusion(flow, a0, a1, params)
+
+
+def _f32(v: float) -> float:
+    return float(np.float32(v))
+
+
+def exact_level(i0x, i0y, i1g, a0, a1, flow, params: FlowParams,
+                phases: int, iters: int) -> torch.Tensor:
+    """One exact pyramid level, both directions of every pair at once:
+    (B, H, W) float32 ``i0x``, ``i0y``, ``a0``, ``a1`` and (B, H, W, 2)
+    ``i1g`` and ``flow``; returns the (B, H, W, 2) flow, bit for bit
+    ``exact_level_plain``'s on the same device.  The kernel holds a
+    direction's planes in one block: H and W of at least 2, and at most
+    the pixels whose planes fit the card's shared memory."""
+    if i0x.dim() != 3:
+        raise ValueError("exact_level: planes must be (B, H, W)")
+    if min(phases, iters) < 0:
+        raise ValueError(f"exact_level: phases and iters must be >= 0, "
+                         f"got {phases}, {iters}")
+    nb, h, w = i0x.shape
+    kw = params.blurred_flow_kernel_width
+    if min(h, w) < 2 or not 1 <= kw <= 80:
+        raise ValueError(f"exact_level: needs H, W >= 2 and a blur width "
+                         f"of 1 to 80, got {(h, w)} and {kw}")
+    dev = _check("exact_level", {"i0x": i0x, "i0y": i0y, "i1g": i1g,
+                                 "a0": a0, "a1": a1, "flow": flow},
+                 {"i0x": (nb, h, w), "i0y": (nb, h, w),
+                  "i1g": (nb, h, w, 2), "a0": (nb, h, w),
+                  "a1": (nb, h, w), "flow": (nb, h, w, 2)})
+    if dev.type == "cpu":
+        return exact_level_plain(i0x, i0y, i1g, a0, a1, flow, params,
+                                 phases, iters)
+    from panorama_opticalflow_tpu_torch.ops import build
+
+    _card_limit("exact_level", "pixels", build.load().pano_exact_level_smem,
+                range(1, 8193), h * w)
+    taps = np.ascontiguousarray(
+        gaussian_kernel_1d(kw, params.blurred_flow_sigma))
+    out = torch.empty_like(flow)
+    # a division by a Python number is, on the card, PyTorch's product
+    # with the reciprocal taken in double and rounded to float32
+    _launch("exact_level", "pano_exact_level", i0x.data_ptr(),
+            i0y.data_ptr(), i1g.data_ptr(), a0.data_ptr(), a1.data_ptr(),
+            flow.data_ptr(), out.data_ptr(), nb, h, w, phases, iters,
+            taps.ctypes.data_as(ctypes.c_void_p), kw,
+            _f32(params.update_alpha_threshold), _f32(params.smoothness_coef),
+            _f32(params.vertical_regularization_coef),
+            _f32(params.horizontal_regularization_coef),
+            _f32(1.0 / w), _f32(params.grad_epsilon),
+            _f32(1.0 / params.grad_epsilon), _f32(params.gradient_step_size),
+            _stream())
+    exact_level.launches += 1
+    return out
+
+
+exact_level.launches = 0
+
 KERNELS = (warp_tiled, relax_phase, median5_diffuse,
-           relax_phase_unfused, median5)
+           relax_phase_unfused, median5, exact_level)
 
 
 def reset_launch_counts() -> None:

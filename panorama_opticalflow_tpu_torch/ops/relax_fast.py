@@ -208,7 +208,7 @@ def relax_phase_fast(flow: torch.Tensor, f_base: torch.Tensor,
     """``iters`` Jacobi rounds of 4-neighbour propagation + descent on a
     batch: flows (B, H, W, 2), w1g (B, H, W, 2), i0x/i0y (B, H, W),
     update_mask (B, H, W) bool.  Out-of-image candidates are rejected
-    (validity masks), as in models.pixflow.relax_iteration."""
+    (validity masks), as in ops.relax_exact.relax_iteration."""
     nb, h, w = i0x.shape
     pad = D + 1
     if params.w1_bf16:

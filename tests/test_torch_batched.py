@@ -32,6 +32,7 @@ from panorama_opticalflow_tpu_torch import (StitchConfig,
 from panorama_opticalflow_tpu_torch.models import (novel_view, pipeline,
                                                    pixflow, stitcher)
 from panorama_opticalflow_tpu_torch.ops import distance as td
+from panorama_opticalflow_tpu_torch.ops import relax_exact
 from panorama_opticalflow_tpu_torch.ops import warp as tw
 from panorama_opticalflow_tpu_torch.utils.config import with_flow_params
 from panorama_opticalflow_tpu_torch.utils import runtime
@@ -101,13 +102,13 @@ def test_exact_level_batched_equals_per_direction_loop(rng):
     mask = T(rng.random((nb, h, w)) > 0.2)
     batched = flow
     for _ in range(params.coarsest_relax_iters_per_phase):
-        batched = pixflow.relax_iteration(batched, i0x, i0y, i1g, bf, mask,
-                                          params)
+        batched = relax_exact.relax_iteration(batched, i0x, i0y, i1g, bf,
+                                              mask, params)
     for b in range(nb):
         f = flow[b]
         for _ in range(params.coarsest_relax_iters_per_phase):
-            f = pixflow.relax_iteration(f, i0x[b], i0y[b], i1g[b], bf[b],
-                                        mask[b], params)
+            f = relax_exact.relax_iteration(f, i0x[b], i0y[b], i1g[b],
+                                            bf[b], mask[b], params)
         assert torch.equal(batched[b], f), b
     assert not torch.equal(batched, flow)
 

@@ -295,7 +295,13 @@ def test_wrappers_take_plain_version_on_cpu(rng):
     got = tk.relax_phase_unfused(*planes, params, 2, 2)
     ref = tk.relax_phase_unfused_plain(*planes, params, 2, 2)
     assert all(torch.equal(a, b) for a, b in zip(got, ref))
-    assert len(tk.KERNELS) == 5
+    lv = [T(p) for p in rng.standard_normal((5, 2, 20, 23)).astype(
+        np.float32)]
+    level = (lv[0], lv[1], torch.stack(lv[2:4], -1), lv[4].abs(),
+             lv[4].abs(), torch.zeros(2, 20, 23, 2), params)
+    assert torch.equal(tk.exact_level(*level, 1, 2),
+                       tk.exact_level_plain(*level, 1, 2))
+    assert len(tk.KERNELS) == 6
     assert all(k.launches == 0 for k in tk.KERNELS)
 
 

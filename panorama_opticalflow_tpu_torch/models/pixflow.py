@@ -20,10 +20,13 @@ direction.
 
 The spans (``utils.trace``): the stages ``pair.flow_prep`` (downscale,
 pre-blur and pyramid; then, a second stretch, the final upsample),
+``pair.flow_floor_twin`` (the ``_fast`` presets' init-floor twin: its
+resizes, init, exact solve and upsample to the coarsest level),
 ``pair.flow_coarsest``, and the other levels in one stage a run:
 ``pair.flow_plain_levels`` below ``pallas_min_pixels``,
 ``pair.flow_kernel_levels`` at or above it; within them a host range
-``flow.level`` a level, its size in the range's arguments.
+``flow.level`` a level (and a twin size), its size in the range's
+arguments.
 """
 
 from __future__ import annotations
@@ -306,16 +309,46 @@ def _floor_twin_flow(planes: torch.Tensor, hw: tuple[int, int], solve,
     alphas, (N, H, W)) are resized progressively down to the sizes below
     the floor, ``solve(small_planes, twin_params)`` runs the init +
     exact relaxation there, and its (B, h, w, 2) flow is upsampled to
-    ``hw`` as this level's incoming flow."""
-    tiny = _sub_floor_sizes(*hw, params)
-    for s in tiny:
-        planes = im.resize_planes(planes, s, "linear")
-    f_t = solve(planes, dataclasses.replace(params, pyr_stop_size=0))
-    (hh, ww), (th, tw) = hw, tiny[-1]
-    up = _from_planes(im.resize_planes(_as_planes(f_t), (hh, ww), "cubic"),
-                      f_t.shape[0])
-    # two Python floats: the products a two-element float32 tensor gives
-    return torch.stack([up[..., 0] * (ww / tw), up[..., 1] * (hh / th)], -1)
+    ``hw`` as this level's incoming flow.  A host range ``flow.level``
+    a size; the last one holds the solve and the upsample."""
+    *down, (th, tw) = _sub_floor_sizes(*hw, params)
+    for s in down:
+        with _level_span(s):
+            planes = im.resize_planes(planes, s, "linear")
+    with _level_span((th, tw)):
+        planes = im.resize_planes(planes, (th, tw), "linear")
+        f_t = solve(planes, dataclasses.replace(params, pyr_stop_size=0))
+        hh, ww = hw
+        up = _from_planes(im.resize_planes(_as_planes(f_t), (hh, ww),
+                                           "cubic"), f_t.shape[0])
+        # two Python floats: the products a two-element float32 tensor
+        # gives
+        return torch.stack([up[..., 0] * (ww / tw), up[..., 1] * (hh / th)],
+                           -1)
+
+
+def _twin_flow(i0: torch.Tensor, i1: torch.Tensor, alpha0: torch.Tensor,
+               alpha1: torch.Tensor, hint: str,
+               params: FlowParams) -> torch.Tensor:
+    """The init-floor twin of one direction's coarsest level, (H, W)
+    planes above a raised floor: its (H, W, 2) incoming flow."""
+    return _floor_twin_flow(
+        torch.stack([i0, i1, alpha0, alpha1]), i0.shape,
+        lambda p, tp: patch_match_level(*p, None, hint, tp)[None],
+        params)[0]
+
+
+def _twin_flow_batched(imgs: torch.Tensor, alphas: torch.Tensor,
+                       hints: tuple[str, str],
+                       params: FlowParams) -> torch.Tensor:
+    """``_twin_flow`` for both directions of N pairs, (2N, H, W) planes
+    as ``patch_match_level_batched`` takes them."""
+    nb = imgs.shape[0]
+    return _floor_twin_flow(
+        torch.cat([imgs, alphas]), imgs.shape[1:],
+        lambda p, tp: patch_match_level_batched(p[:nb], p[nb:], None, hints,
+                                                tp),
+        params)
 
 
 def patch_match_level(i0: torch.Tensor, i1: torch.Tensor,
@@ -323,18 +356,14 @@ def patch_match_level(i0: torch.Tensor, i1: torch.Tensor,
                       flow: torch.Tensor | None, hint: str,
                       params: FlowParams) -> torch.Tensor:
     """One pyramid level for one direction (CPU/PixFlow.hpp:272-340):
-    (H, W) planes, ``flow`` (H, W, 2) or None at the coarsest level."""
+    (H, W) planes, ``flow`` (H, W, 2), or None at the coarsest level,
+    which then starts from the initial flow (at a raised floor the caller
+    passes the init-floor twin's flow instead: ``_twin_flow``)."""
     gx, gy = _gradients(torch.stack([i0, i1]), params)
     i1g = torch.stack([gx[1], gy[1]], dim=-1)
 
     coarsest = flow is None
-    if coarsest and _sub_floor_sizes(*i0.shape, params):
-        flow = _floor_twin_flow(
-            torch.stack([i0, i1, alpha0, alpha1]), i0.shape,
-            lambda p, tp: patch_match_level(*p, None, hint, tp)[None],
-            params)[0]
-        coarsest = False
-    elif coarsest:
+    if coarsest:
         flow = _initial_flow(i0, i1, alpha0, alpha1, hint, params)
 
     return _level_core(gx[:1], gy[:1], i1g[None], alpha0[None],
@@ -355,24 +384,16 @@ def patch_match_level_batched(imgs: torch.Tensor, alphas: torch.Tensor,
     ``imgs``/``alphas`` (2N, H, W), entry 2n + d the image d of pair n;
     direction 2n + d solves the flow from that image to its partner with
     the hint hints[d].  ``flow`` is (2N, H, W, 2), or None at the coarsest
-    level."""
+    level, which then starts from the initial flow (at a raised floor the
+    caller passes the init-floor twin's flow instead:
+    ``_twin_flow_batched``)."""
     nb = imgs.shape[0]
     gx, gy = _gradients(imgs, params)
     i1g = torch.stack([_partner(gx), _partner(gy)], dim=-1)
     a0, a1 = alphas, _partner(alphas)
 
     coarsest = flow is None
-    if coarsest and _sub_floor_sizes(*imgs.shape[1:], params):
-        # raised pyramid floor (_fast presets): init + exact relaxation on
-        # a <= pyr_min_image_size twin, then refine this level on the fast
-        # path off the upsampled init
-        flow = _floor_twin_flow(
-            torch.cat([imgs, alphas]), imgs.shape[1:],
-            lambda p, tp: patch_match_level_batched(p[:nb], p[nb:], None,
-                                                    hints, tp),
-            params)
-        coarsest = False
-    elif coarsest:
+    if coarsest:
         i1 = _partner(imgs)
         flow = torch.stack([
             _initial_flow(imgs[b], i1[b], a0[b], a1[b], hints[b % 2], params)
@@ -418,9 +439,13 @@ def compute_optical_flow(rgba0: torch.Tensor, rgba1: torch.Tensor,
         pyr = _build_pyramid(torch.stack([i0, i1, a0, a1]), sizes)
 
     top = len(sizes) - 1
+    flow = None
+    if _sub_floor_sizes(*sizes[top], params):
+        with trace.span("pair.flow_floor_twin", stage=True):
+            flow = _twin_flow(*pyr[top], hint, params)
     with trace.span("pair.flow_coarsest", stage=True), \
             _level_span(sizes[top]):
-        flow = patch_match_level(*pyr[top], None, hint, params)
+        flow = patch_match_level(*pyr[top], flow, hint, params)
     for stage, levels in _level_runs(sizes, params):
         with trace.span(stage, stage=True):
             for level in levels:
@@ -458,9 +483,13 @@ def compute_optical_flow_pairs(rgba0: torch.Tensor, rgba1: torch.Tensor,
     hints = (hint01, hint10)
 
     top = len(sizes) - 1
+    flow = None
+    if _sub_floor_sizes(*sizes[top], params):
+        with trace.span("pair.flow_floor_twin", stage=True):
+            flow = _twin_flow_batched(p_g[top], p_a[top], hints, params)
     with trace.span("pair.flow_coarsest", stage=True), \
             _level_span(sizes[top]):
-        flow = patch_match_level_batched(p_g[top], p_a[top], None, hints,
+        flow = patch_match_level_batched(p_g[top], p_a[top], flow, hints,
                                          params)
     for stage, levels in _level_runs(sizes, params):
         with trace.span(stage, stage=True):

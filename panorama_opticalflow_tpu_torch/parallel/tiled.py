@@ -20,7 +20,9 @@ process all n tiles form one stack (T = n) on one device; under
 * pyramid levels too small to tile are computed whole from the gathered
   rows.  A level's solver is the port's ``pixflow.patch_match_level_batched``
   on the halo-extended tile stack, with the same CUDA kernels as the
-  untiled path.
+  untiled path; above a raised pyramid floor the coarsest level starts
+  from its init-floor twin (``pixflow._twin_flow_batched``), as in
+  ``pixflow.compute_optical_flow_pairs``.
 
 Two documented deviations from the untiled program come along from the
 reference as they are: (a) the global top and bottom rows of stencil
@@ -455,6 +457,15 @@ def tiled_compute_optical_flow_pair(
     p_i0, p_i1, p_a0, p_a1 = (_build_tiled_pyramid(p, sizes, tiled, comm, dh)
                               for p in (i0, i1, a0, a1))
     halo = tc.level_halo
+
+    def solve(imgs, alphas, fb):
+        if fb is None and pixflow._sub_floor_sizes(*imgs.shape[1:], params):
+            # raised pyramid floor (_fast presets): the coarsest level
+            # refines off its init-floor twin's flow
+            fb = pixflow._twin_flow_batched(imgs, alphas, hints, params)
+        return pixflow.patch_match_level_batched(imgs, alphas, fb, hints,
+                                                 params)
+
     flow_c = None
     for level in range(len(sizes) - 1, -1, -1):
         lh = sizes[level][0]
@@ -462,8 +473,7 @@ def tiled_compute_optical_flow_pair(
             imgs = torch.stack([p_i0[level], p_i1[level]])
             alphas = torch.stack([p_a0[level], p_a1[level]])
             fb = None if flow_c is None else _to_b(flow_c)
-            flow_c = _to_c(pixflow.patch_match_level_batched(
-                imgs, alphas, fb, hints, params), tiled=False)
+            flow_c = _to_c(solve(imgs, alphas, fb), tiled=False)
             if level > 0:
                 flow_c = _upsample_whole(flow_c, level, sizes, tiled, comm,
                                          params)
@@ -472,8 +482,8 @@ def tiled_compute_optical_flow_pair(
         imgs = _interleave(ex(p_i0[level]), ex(p_i1[level]))
         alphas = _interleave(ex(p_a0[level]), ex(p_a1[level]))
         fb = None if flow_c is None else _to_b(ex(flow_c))
-        flow_c = _crop_rows(_to_c(pixflow.patch_match_level_batched(
-            imgs, alphas, fb, hints, params), tiled=True), halo)
+        flow_c = _crop_rows(_to_c(solve(imgs, alphas, fb), tiled=True),
+                            halo)
         if level > 0:
             nh, nw = sizes[level - 1]
             plan = make_row_resize_plan(lh, nh, n, "cubic")

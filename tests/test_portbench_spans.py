@@ -137,3 +137,30 @@ def test_per_panorama_readings_and_the_readers():
     run.port_spans = spans.Spans(1, None, 1.0, None, 1.0)
     assert harness.load_reader("stage_ms.blend")(run) is None
     assert harness.load_reader("idle_ms.plan")(run) is None
+
+
+def test_the_floor_twin_reader_reads_its_stage_or_none():
+    """``stage_ms.flow_floor_twin`` reads the twin's stage where the
+    replays have it, and None where they do not (a port that solves the
+    twin inside ``pair.flow_coarsest``, or a preset without a twin), so
+    that the result line leaves it out there."""
+    def replays(stages):
+        return [trace.Replay("_chain_body", 0, stages)]
+
+    read = harness.load_reader("stage_ms.flow_floor_twin")
+    run = harness.Run(None, 0.0, None, {}, {}, 0, None)
+    rec = trace.Recording(replays=replays([
+        ("pair.flow_prep", 0.0, 1.0), ("pair.flow_floor_twin", 1.0, 1.25),
+        ("pair.flow_coarsest", 1.25, 2.0), ("pair.flow_prep", 2.0, 2.5),
+        ("pair.flow_floor_twin", 2.5, 2.75),
+        ("pair.flow_coarsest", 2.75, 3.0)]))
+    run.port_spans = spans.reduce([], rec, trace.Recording(), panoramas=1)
+    assert read(run) == pytest.approx(0.5)
+    assert harness.load_reader("stage_ms.flow_coarsest")(run) == \
+        pytest.approx(1.0)
+    rec = trace.Recording(replays=replays([
+        ("pair.flow_prep", 0.0, 1.0), ("pair.flow_coarsest", 1.0, 2.0)]))
+    run.port_spans = spans.reduce([], rec, trace.Recording(), panoramas=1)
+    assert read(run) is None
+    run.port_spans = None
+    assert read(run) is None

@@ -233,6 +233,47 @@ def test_tiled_flow_pair_matches_jax_tiled():
     assert np.percentile(d, 99) <= 0.6, np.percentile(d, 99)
 
 
+@pytest.mark.parametrize("n,tc", [(N, tiled.TileConfig(8, 28)),
+                                  (4, tiled.TileConfig(8, 24))],
+                         ids=["top whole", "top tiled"])
+def test_tiled_fast_flow_pair_matches_jax_tiled(n, tc):
+    """pixflow_low_fast: the tiled solver hands its coarsest level, above
+    the raised floor, the flow of the level's init-floor twin (the JAX
+    package's level solves the twin inside itself); computed whole at
+    n = 8 and on halo-extended tiles at n = 4.  Without the twin the
+    flows part by ~2 px."""
+    import dataclasses
+
+    h, w = 512, 192
+    photos, _ = synthesize_fisheye_set(h, w, n=2, seed=5, with_top=False)
+    img0 = photos[0].copy()
+    img0[..., 3] = 255
+    img1 = np.roll(img0, (2, 3), axis=(0, 1))
+    img1[..., :3] = np.clip(img1[..., :3] * 1.05, 0, 255).astype(np.uint8)
+    photos = (img0, img1)
+    params = dataclasses.replace(flow_params_by_name("pixflow_low_fast"),
+                                 relax_iters_per_phase=3)
+    sizes = pixflow.pyramid_sizes(h // 2, w // 2, params)
+    assert len(sizes) == 2 and pixflow._sub_floor_sizes(*sizes[-1], params)
+    assert tiled.tiled_levels(sizes, n, tc) == [True, n == 4]
+    hints = ("left", "right")
+    got = np.stack([to_numpy(f).reshape(h, w, 2)
+                    for f in tiled.tiled_compute_optical_flow_pair(
+                        *(_tiles(to_torch(p, "cpu"), n) for p in photos),
+                        params, hints, mesh.InProcessRows(n), h, tc)])
+    jparams = dataclasses.replace(
+        jcfg.flow_params_by_name("pixflow_low_fast"),
+        relax_iters_per_phase=3)
+    ref = np.stack(_jax_shard(
+        lambda a, b: jt.tiled_compute_optical_flow_pair(
+            a, b, jparams, hints, AXIS, n, h, _jax_tc(tc)),
+        *photos, n=n, outs=2))
+    assert np.abs(ref).max() > 1.0           # a real flow was solved
+    d = np.linalg.norm(got - ref, axis=-1)
+    assert d.mean() <= 0.1, d.mean()
+    assert np.percentile(d, 99) <= 0.6, np.percentile(d, 99)
+
+
 def _composed(h, w, seed):
     photos = synthesize_four_input_set(h, w, seed=seed)
     return pipeline.compose_four([to_torch(p, "cpu") for p in photos])

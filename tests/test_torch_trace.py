@@ -1,8 +1,9 @@
 """The port's tracer (``utils/trace.py``) on the CPU.
 
 * The span tree of a stitch: names, parents, order and call numbers for
-  the 6-photo chain and the full-canvas pass of N pairs, the flow's
-  levels grouped by ``pallas_min_pixels``; and the leaf tiling: every
+  the 6-photo chain (``pixflow_low``, and ``pixflow_low_fast`` with its
+  init-floor twin as a stage) and the full-canvas pass of N pairs, the
+  flow's levels grouped by ``pallas_min_pixels``; and the leaf tiling: every
   operation of a body (views aside, which launch nothing) runs inside
   one of its ``pair.*`` stage spans, none of which holds another.
 * With no recording open a body dispatches exactly the ops it dispatches
@@ -39,10 +40,15 @@ H, W = 96, 320
 # versions, on the CPU) in one descent
 CHAIN_HW, CHAIN_PMP = (64, 1280), 11000
 PMP = 6000
+# pixflow_low_fast's chain: 512-column windows of a 960-column canvas,
+# whose flow's top level (66 x 164) lies above the raised floor, with an
+# init-floor twin of four sizes below it and a plain and a kernel level
+# above it
+FAST_HW, FAST_PMP = (208, 960), 20000
 
 
-def _cfg(pmp=PMP):
-    return with_flow_params(StitchConfig(flow_alg="pixflow_low"),
+def _cfg(pmp=PMP, flow_alg="pixflow_low"):
+    return with_flow_params(StitchConfig(flow_alg=flow_alg),
                             pallas_min_pixels=pmp)
 
 
@@ -65,8 +71,15 @@ def _flow_spans(h, w, params):
     sizes = pixflow.pyramid_sizes(int(h * params.downscale_factor),
                                   int(w * params.downscale_factor), params)
     top = len(sizes) - 1
-    out = [("pair.flow_prep", None), ("pair.flow_coarsest", None),
-           ("flow.level", "%dx%d" % sizes[top])]
+    out = [("pair.flow_prep", None)]
+    twin = pixflow._sub_floor_sizes(*sizes[top], params)
+    assert bool(twin) == bool(params.pyr_stop_size)
+    if twin:
+        # the _fast presets' init-floor twin, a stage of its own
+        out.append(("pair.flow_floor_twin", None))
+        out += [("flow.level", "%dx%d" % s) for s in twin]
+    out += [("pair.flow_coarsest", None),
+            ("flow.level", "%dx%d" % sizes[top])]
     pmp = params.pallas_min_pixels
     plain = [s for s in sizes[top - 1::-1] if s[0] * s[1] < pmp]
     kernel = [s for s in sizes[top - 1::-1] if s[0] * s[1] >= pmp]
@@ -81,10 +94,13 @@ def _flow_spans(h, w, params):
 def _case(kind, pairs=5):
     """(root span, entry, body, tensors, static, the spans below the
     root: (name, args)); a chain of ``pairs`` pairs."""
-    if kind == "chain":
-        cfg = _cfg(CHAIN_PMP)
-        h, w = CHAIN_HW
-        photos, top = _six(CHAIN_HW)
+    if kind.startswith("chain"):
+        hw, pmp, alg = ((FAST_HW, FAST_PMP, "pixflow_low_fast")
+                        if kind == "chain fast"
+                        else (CHAIN_HW, CHAIN_PMP, "pixflow_low"))
+        cfg = _cfg(pmp, alg)
+        h, w = hw
+        photos, top = _six(hw)
         photos = photos[:pairs]
         windows = crop.plan_chain_windows(photos, top, cfg)
         rolls = torch.tensor([r for r, _, _ in windows])
@@ -134,7 +150,7 @@ class _Ops(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
-@pytest.mark.parametrize("kind", ["chain", "full N=2"])
+@pytest.mark.parametrize("kind", ["chain", "full N=2", "chain fast"])
 def test_span_tree_and_leaf_tiling(kind):
     root, entry, body, tensors, static, expected = _case(kind)
     with trace.recording() as rec:
@@ -147,7 +163,8 @@ def test_span_tree_and_leaf_tiling(kind):
     for s in spans[1:]:
         parent = spans[s.parent]
         if s.name == "flow.level":
-            assert parent.name in ("pair.flow_coarsest",
+            assert parent.name in ("pair.flow_floor_twin",
+                                   "pair.flow_coarsest",
                                    "pair.flow_plain_levels",
                                    "pair.flow_kernel_levels")
             assert parent.start_ns <= s.start_ns <= s.end_ns <= \

@@ -7,9 +7,12 @@ Builds the hand-written CUDA kernels from panorama_opticalflow_tpu_torch/
 csrc/, then runs ten phases and prints one JSON object per phase line:
 
   A  the card (nvidia-smi name and power limit) and the kernel build;
-  B  each of the six kernels against its plain PyTorch version on the
-     card (exact_level, every bit equal, at the cells' coarsest levels:
-     six, four and batch4's), at the 9000x4000 headline's finest-level
+  B  each kernel against its plain PyTorch version on the card
+     (exact_level, every bit equal, at the cells' coarsest levels: six,
+     four and batch4's; the small levels' relax, unfused relax and
+     median5+diffuse, every bit equal to the plain branch's ops, timed
+     beside them at six's largest plain level (2, 244, 218) and batch4's
+     (8, 160, 395)), at the 9000x4000 headline's finest-level
      shapes, at a middle
      level of its pyramid and at a ragged small shape, with kernel and
      plain median times (CUDA events; the kernel table keeps the finest
@@ -175,6 +178,9 @@ KERNEL_FILES = {
     "relax_phase_unfused": ("csrc/relax_phase.cu", 732),
     "median5": ("csrc/median5.cu", 193),
     "exact_level": ("csrc/exact_level.cu", None),
+    "small_relax_phase": ("csrc/relax_phase.cu", None),
+    "small_relax_phase_unfused": ("csrc/relax_phase.cu", None),
+    "small_median5_diffuse": ("csrc/median5_diffuse.cu", None),
 }
 # the 36 MP fidelity harness's schedule knobs (tools/fidelity_36mp.py)
 SCHEDULES = {"production": {},
@@ -280,6 +286,10 @@ EXACT_ITER_OPS = 7 * EXACT_ERR_OPS + 5 + 2 + 8
 # batched descent (the table keeps the four-input level's times)
 B_EXACT = (("six", (2, 30, 27)), ("four", (2, 27, 67)),
            ("batch4", (8, 27, 67)))
+# phase B's small-level shapes (below pallas_min_pixels): the largest plain
+# level of the six-photo chain's pyramid and of batch4's batched descent
+# (the table keeps the six-photo level's times)
+B_SMALL = (("six_small", (2, 244, 218)), ("batch4_small", (8, 160, 395)))
 
 
 def bound(nbytes: int, ops: int) -> dict:
@@ -462,6 +472,66 @@ def exact_cases(dev, rng, b: int, h: int, w: int) -> list[dict]:
                  nbytes=4 * 10 * b * h * w, ops=ops * b * h * w)]
 
 
+def small_cases(dev, rng, b: int, h: int, w: int) -> list[dict]:
+    """The small levels' kernels on a level of (b, h, w) as ``_level_core``
+    gets it (textured images, their blurred gradients, alphas with a hole,
+    a smooth incoming flow and its warp), pixflow_low: each against its
+    plain version, the plain branch's ops on the card, every bit equal."""
+    import numpy as np
+    import torch
+
+    from panorama_opticalflow_tpu_torch import flow_params_by_name
+    from panorama_opticalflow_tpu_torch.models import pixflow
+    from panorama_opticalflow_tpu_torch.ops import kernels
+
+    params = flow_params_by_name("pixflow_low")
+    iters, D = params.relax_iters_per_phase, params.fast_window
+    kw = params.blurred_flow_kernel_width
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    imgs = np.stack([0.5 + 0.2 * np.sin(xx / 3.1 + p) * np.cos(yy / 4.3)
+                     + 0.05 * rng.standard_normal((h, w))
+                     for p in rng.random(b) * 6]).astype(np.float32)
+    imgs = torch.from_numpy(imgs).to(dev)
+    alphas = np.ones((b, h, w), np.float32)
+    alphas[:, :, :w // 5] = 0.0
+    alphas = torch.from_numpy(alphas).to(dev)
+    gx, gy = pixflow._gradients(imgs, params)
+    i1g = torch.stack([pixflow._partner(gx), pixflow._partner(gy)], -1)
+    f = np.stack([2 * np.sin(yy / 7.0) + 1.5 * np.cos(xx / 5.0),
+                  np.cos(yy / 6.0) - 0.5 * np.sin(xx / 9.0)], -1)
+    flow = torch.from_numpy(np.stack([f] * b).astype(np.float32)).to(dev)
+    fx, fy = pixflow._xy(flow)
+    w1x, w1y = pixflow._xy(kernels.warp_tiled(i1g.contiguous(), flow))
+    a1 = pixflow._partner(alphas)
+    mask = ((alphas > params.update_alpha_threshold)
+            & (a1 > params.update_alpha_threshold)).float()
+    rp = [fx, fy, fx, fy, w1x, w1y, gx, gy, mask]
+    bfx, bfy = pixflow._xy(pixflow._blur_flow(flow, params))
+    up = rp[:8] + [bfx, bfy, mask]
+    x = torch.stack(kernels.small_relax_phase_plain(*rp, params, iters, D),
+                    1).reshape(2 * b, h, w)
+    c = (1.0 - alphas * a1).contiguous()
+    px = b * h * w
+    return [
+        dict(name="small_relax_phase", dims=[b, h, w], iters=iters, tol=0.0,
+             kernel=lambda: kernels.small_relax_phase(*rp, params, iters, D),
+             plain=lambda: kernels.small_relax_phase_plain(*rp, params,
+                                                           iters, D),
+             nbytes=4 * 11 * px,
+             ops=(iters * RELAX_OPS_PER_ITER + 2 * 2 * kw * 2) * px),
+        dict(name="small_relax_phase_unfused", dims=[b, h, w], iters=iters,
+             tol=0.0,
+             kernel=lambda: kernels.small_relax_phase_unfused(
+                 *up, params, iters, D),
+             plain=lambda: kernels.small_relax_phase_unfused_plain(
+                 *up, params, iters, D),
+             nbytes=4 * 13 * px, ops=iters * RELAX_OPS_PER_ITER * px),
+        dict(name="small_median5_diffuse", dims=[2 * b, h, w], tol=0.0,
+             kernel=lambda: kernels.small_median5_diffuse(x, c),
+             plain=lambda: kernels.small_median5_diffuse_plain(x, c),
+             nbytes=4 * 5 * px, ops=(MEDIAN_OPS + 2 * 2 * kw + 4) * 2 * px)]
+
+
 def as_tensor(out):
     import torch
 
@@ -478,9 +548,10 @@ def phase_b(dev) -> dict:
 
     rng = np.random.default_rng(0)
     results = {name: {"max_abs_err": 0.0} for name in KERNEL_FILES}
-    shapes = [(tag, shape, kernel_cases) for tag, shape in
-              B_SHAPES + (B_BATCHED,)] + [(tag, shape, exact_cases)
-                                         for tag, shape in B_EXACT]
+    shapes = ([(tag, shape, kernel_cases) for tag, shape in
+               B_SHAPES + (B_BATCHED,)]
+              + [(tag, shape, exact_cases) for tag, shape in B_EXACT]
+              + [(tag, shape, small_cases) for tag, shape in B_SMALL])
     for tag, (b, h, w), cases in shapes:
         for case in cases(dev, rng, b, h, w):
             name = case["name"]
@@ -505,7 +576,7 @@ def phase_b(dev) -> dict:
                 ok = share < case["max_share"]
             else:
                 ok = err <= case["tol"]
-            if (tag in B_TIMED or cases is exact_cases) \
+            if (tag in B_TIMED or cases is not kernel_cases) \
                     and not case.get("check_only"):
                 timed = {"ms": cuda_ms(case["kernel"], 20),
                          "plain_ms": cuda_ms(case["plain"], 5),
@@ -521,8 +592,8 @@ def phase_b(dev) -> dict:
                     timed["glue_ms"] = cuda_ms(case["glue"], 20)
                     timed["launch_ms"] = cuda_ms(case["launch"], 20)
                 rec.update(timed)
-                if tag in ("headline", "four"):   # the kernel table's shape
-                    results[name].update(timed)
+                if tag in ("headline", "four", "six_small"):
+                    results[name].update(timed)   # the kernel table's
             results[name]["max_abs_err"] = max(err,
                                                results[name]["max_abs_err"])
             emit(rec)
@@ -717,7 +788,11 @@ def expected_launches(windows, canvas_h: int, params, tiles=None) -> dict:
     """Kernel launches of one chain.  Per fast level the warp runs once per
     phase; a level of at least pallas_min_pixels runs the fused relax and
     median5+diffuse once if it is a single-phase fused level, else the
-    unfused relax and median5 once per phase.  With a raised pyramid floor
+    unfused relax and median5 once per phase; a smaller level the small
+    levels' fused relax and median5+diffuse once, else their unfused relax
+    once per phase, median5 after each phase but the last and their
+    median5+diffuse once (a small relax runs a phase of more than
+    SMALL_RELAX_ITERS iterations in several launches).  With a raised pyramid floor
     (_fast) every level of pyramid_sizes is a fast level; otherwise the
     coarsest is exact.  The exact level (the coarsest, or the _fast
     presets' init-floor twin) runs exact_level once where a block holds
@@ -730,8 +805,12 @@ def expected_launches(windows, canvas_h: int, params, tiles=None) -> dict:
     from panorama_opticalflow_tpu_torch.models import pixflow
     from panorama_opticalflow_tpu_torch.parallel import tiled
 
+    from panorama_opticalflow_tpu_torch.ops import kernels
+
     phases = params.relax_phases
     fused = phases == 1 and params.fuse_level_blurs
+    # a small level's relax launches a phase (D <= 3)
+    runs = -(-params.relax_iters_per_phase // kernels.SMALL_RELAX_ITERS)
     n = dict.fromkeys(KERNEL_FILES, 0)
     for _, width, _ in windows:
         sizes = pixflow.pyramid_sizes(int(canvas_h * params.downscale_factor),
@@ -747,13 +826,18 @@ def expected_launches(windows, canvas_h: int, params, tiles=None) -> dict:
                                           tiled.tiled_levels(sizes, nt, tc))]
         fast = sizes if params.pyr_stop_size else sizes[:-1]
         big = sum(h * w >= params.pallas_min_pixels for h, w in fast)
+        small = len(fast) - big
         n["warp_tiled"] += phases * len(fast)
         if fused:
             n["relax_phase"] += big
             n["median5_diffuse"] += big
+            n["small_relax_phase"] += runs * small
+            n["small_median5_diffuse"] += small
         else:
             n["relax_phase_unfused"] += phases * big
-            n["median5"] += phases * big
+            n["median5"] += phases * big + max(phases - 1, 0) * small
+            n["small_relax_phase_unfused"] += runs * phases * small
+            n["small_median5_diffuse"] += small if phases else 0
     return n
 
 

@@ -19,6 +19,13 @@ __device__ __forceinline__ float clampf(float v, float lo, float hi) {
   return fminf(fmaxf(v, lo), hi);
 }
 
+// np.pad's 'reflect' (reflect-101) source index of i in [0, n), n >= 2:
+// folded until it lies inside, which also covers pads wider than the plane
+__device__ __forceinline__ int reflect101(int i, int n) {
+  while (i < 0 || i >= n) i = i < 0 ? -i : 2 * (n - 1) - i;
+  return i;
+}
+
 // max(0, 1 - |t|): the bilinear hat weight
 __device__ __forceinline__ float hat(float t) {
   return fmaxf(0.f, 1.f - fabsf(t));

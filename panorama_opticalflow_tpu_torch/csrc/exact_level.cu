@@ -67,13 +67,6 @@ __host__ __device__ constexpr size_t smem_bytes(int n) {
   return 40 * (size_t)n + (size_t)n;
 }
 
-// np.pad's 'reflect' (reflect-101) source index of i in [0, n), n >= 2:
-// folded until it lies inside, which also covers pads wider than the plane
-__device__ __forceinline__ int reflect101(int i, int n) {
-  while (i < 0 || i >= n) i = i < 0 ? -i : 2 * (n - 1) - i;
-  return i;
-}
-
 // error_function of candidate flow (cx, cy) at pixel (x, y), whose i0 is iv
 // and whose target is tv; g holds i1g (both channels), w x h
 __device__ __forceinline__ float err(const Scalars& s, const float2* g, int w,
@@ -129,8 +122,8 @@ __device__ __forceinline__ float2 blur_at(const pano::Taps& taps,
   const int r = taps.n / 2;
   float2 acc = make_float2(0.f, 0.f);
   for (int t = 0; t < taps.n; ++t) {
-    const float2 v = ROWS ? src[reflect101(y + t - r, h) * w + x]
-                          : src[y * w + reflect101(x + t - r, w)];
+    const float2 v = ROWS ? src[pano::reflect101(y + t - r, h) * w + x]
+                          : src[y * w + pano::reflect101(x + t - r, w)];
     acc.x = acc.x + taps.v[t] * v.x;
     acc.y = acc.y + taps.v[t] * v.y;
   }

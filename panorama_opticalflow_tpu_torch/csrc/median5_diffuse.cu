@@ -35,6 +35,17 @@
 // sum rounded alone).  The x pass reuses the input window's storage.  A
 // tile at the plane's lower or right edge computes only the rows and runs
 // it needs.
+//
+// The small levels (below pallas_min_pixels) blur with the image's own
+// borders instead: median5_diffuse_small_kernel is bit for bit im.median5
+// then the plain low-alpha diffusion (ops.kernels.
+// small_median5_diffuse_plain), with no JAX counterpart.  The median field
+// is the same (edge-replicated windows); the blur reads it at reflect-101
+// coordinates of the plane, the y pass first (ops.image.gaussian_blur), and
+// out = c * blur + (1 - c) * med with c = 1 - a0 * a1 given.  A reflected
+// coordinate of a tile's pixel lies inside the tile's median field, so the
+// block computes the same field; its passes are scalar (a small level is
+// a few blocks, bound by their latency).
 #include <cstdint>
 
 #include <cuda_pipeline.h>
@@ -69,6 +80,32 @@ struct Geo {
   }
 };
 
+// The median field of a tile whose corner is at (y0, x0): mh rows of
+// mruns runs from (y0 - gr, x0 - gr) on, each median of the edge-replicated
+// input, into med (row stride mld); xs stages the input window.  Ends in a
+// barrier.
+__device__ __forceinline__ void median_field(const Geo& G, const float* x,
+                                             int h, int w, int y0, int x0,
+                                             int mh, int mruns, float* xs,
+                                             float* med) {
+  pano::stage_clamped_async(xs, x, h, w, y0 - G.gr - 2, x0 - G.gr - 2,
+                            mh + 4, G.xld);
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+
+  for (int k = threadIdx.x; k < mh * mruns; k += blockDim.x) {
+    const int r = k / mruns, q = (k - r * mruns) * MRUN;
+    float m[MRUN];
+    pano::median5_run(xs + r * G.xld + q, G.xld, m);
+#pragma unroll
+    for (int i = 0; i < MRUN; i += 4)
+      *reinterpret_cast<float4*>(med + r * G.mld + q + i) =
+          make_float4(m[i], m[i + 1], m[i + 2], m[i + 3]);
+  }
+  __syncthreads();
+}
+
 // KS > 0: a kernel built for KS taps, its blurs unrolled; KS == 0: the
 // tap count of ``taps`` at run time, the same sums in the same order.
 // VEC: every row of the planes starts on a 16-byte boundary.
@@ -92,22 +129,7 @@ median5_diffuse_kernel(const float* __restrict__ x, const float* __restrict__ cf
   const int mruns = (tw + 2 * GR + MRUN - 1) / MRUN;  // median runs a row
   const int oruns = (tw + RUN - 1) / RUN;              // output runs a row
 
-  pano::stage_clamped_async(xs, x + p * hw, h, w, y0 - GR - 2, x0 - GR - 2,
-                            mh + 4, G.xld);
-  __pipeline_commit();
-  __pipeline_wait_prior(0);
-  __syncthreads();
-
-  for (int k = threadIdx.x; k < mh * mruns; k += blockDim.x) {
-    const int r = k / mruns, q = (k - r * mruns) * MRUN;
-    float m[MRUN];
-    pano::median5_run(xs + r * G.xld + q, G.xld, m);
-#pragma unroll
-    for (int i = 0; i < MRUN; i += 4)
-      *reinterpret_cast<float4*>(med + r * G.mld + q + i) =
-          make_float4(m[i], m[i + 1], m[i + 2], m[i + 3]);
-  }
-  __syncthreads();
+  median_field(G, x + p * hw, h, w, y0, x0, mh, mruns, xs, med);
 
   // x pass: accx[r][q + m] = sum_t taps[t] * med[r][q + m + t]; the
   // columns beyond the medians computed above feed no output
@@ -186,6 +208,67 @@ median5_diffuse_kernel(const float* __restrict__ x, const float* __restrict__ cf
   }
 }
 
+// The small levels' contract: the same median field, the blur at
+// reflect-101 coordinates, the y pass first.  Every sum from +0, taps
+// ascending.
+template <int KS>
+__global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
+median5_diffuse_small_kernel(const float* __restrict__ x,
+                             const float* __restrict__ cf,
+                             float* __restrict__ out, int h, int w,
+                             pano::Taps taps) {
+  constexpr Geo GC(KS ? KS : 1);
+  const Geo G = KS ? GC : Geo(taps.n);
+  const int nt = KS ? KS : taps.n;
+  const int GR = G.gr;
+  extern __shared__ float4 smem4[];
+  float* xs = reinterpret_cast<float*>(smem4);  // xh x xld, later th x mld
+  float* med = xs + G.xh * G.xld;               // mh x mld
+
+  const int x0 = blockIdx.x * MTW, y0 = blockIdx.y * MTH;
+  const int p = blockIdx.z;
+  const size_t hw = (size_t)h * w;
+  const int th = min(MTH, h - y0), tw = min(MTW, w - x0);
+  const int mh = th + 2 * GR;
+  const int mruns = (tw + 2 * GR + MRUN - 1) / MRUN;
+  median_field(G, x + p * hw, h, w, y0, x0, mh, mruns, xs, med);
+
+  // y pass: acc[r][fc] over the tile's rows and the field's columns that
+  // lie in the plane (field column fc is plane column x0 - GR + fc)
+  float* acc = xs;
+  const int fc0 = max(0, GR - x0), fc1 = min(tw + 2 * GR, w - x0 + GR);
+  const int nc = fc1 - fc0;
+  for (int k = threadIdx.x; k < th * nc; k += blockDim.x) {
+    const int r = k / nc, fc = fc0 + k % nc;
+    float a = 0.f;
+#pragma unroll
+    for (int i = 0; i < nt; ++i)
+      a = a + taps.v[i] *
+                  med[(pano::reflect101(y0 + r + i - GR, h) - (y0 - GR)) *
+                          G.mld + fc];
+    acc[r * G.mld + fc] = a;
+  }
+  __syncthreads();
+
+  // x pass and the blend
+  const float* coef = cf + (size_t)(p / 2) * hw;
+  float* dst = out + (size_t)p * hw;
+  for (int k = threadIdx.x; k < th * tw; k += blockDim.x) {
+    const int yq = k / tw, q = k % tw;
+    float blur = 0.f;
+#pragma unroll
+    for (int i = 0; i < nt; ++i)
+      blur = blur + taps.v[i] *
+                        acc[yq * G.mld +
+                            (pano::reflect101(x0 + q + i - GR, w) -
+                             (x0 - GR))];
+    const float m = med[(yq + GR) * G.mld + q + GR];
+    const size_t at = (size_t)(y0 + yq) * w + x0 + q;
+    const float cv = coef[at];
+    dst[at] = cv * blur + (1.f - cv) * m;
+  }
+}
+
 template <int KS>
 int launch(const float* x, const float* c, float* out, int planes, int h,
            int w, const pano::Taps& taps, bool vec, cudaStream_t stream) {
@@ -197,6 +280,20 @@ int launch(const float* x, const float* c, float* out, int planes, int h,
   if (err != cudaSuccess) return (int)err;
   dim3 grid((w + MTW - 1) / MTW, (h + MTH - 1) / MTH, planes);
   kernel<<<grid, THREADS, smem, stream>>>(x, c, out, h, w, taps);
+  return (int)cudaGetLastError();
+}
+
+template <int KS>
+int launch_small(const float* x, const float* c, float* out, int planes,
+                 int h, int w, const pano::Taps& taps, cudaStream_t stream) {
+  const size_t smem = Geo(KS ? KS : taps.n).smem();
+  cudaError_t err = cudaFuncSetAttribute(
+      median5_diffuse_small_kernel<KS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((w + MTW - 1) / MTW, (h + MTH - 1) / MTH, planes);
+  median5_diffuse_small_kernel<KS><<<grid, THREADS, smem, stream>>>(
+      x, c, out, h, w, taps);
   return (int)cudaGetLastError();
 }
 
@@ -233,4 +330,19 @@ extern "C" int pano_median5_diffuse(const float* x, const float* c, float* out,
     case 15: return launch<15>(x, c, out, planes, h, w, taps, vec, s);
     default: return launch<0>(x, c, out, planes, h, w, taps, vec, s);
   }
+}
+
+// The small levels' variant: unrolled for the presets' 15 taps, any other
+// ksize at run time; planes of at least 2 x 2 (reflect-101 needs two).
+extern "C" int pano_small_median5_diffuse(const float* x, const float* c,
+                                          float* out, int planes, int h,
+                                          int w, const float* taps_host,
+                                          int ksize, void* stream) {
+  if (planes < 2 || planes % 2 != 0 || h < 2 || w < 2 || ksize < 1 ||
+      ksize > pano::MAX_TAPS)
+    return (int)cudaErrorInvalidValue;
+  const pano::Taps taps = pano::make_taps(taps_host, ksize);
+  cudaStream_t s = (cudaStream_t)stream;
+  return ksize == 15 ? launch_small<15>(x, c, out, planes, h, w, taps, s)
+                     : launch_small<0>(x, c, out, planes, h, w, taps, s);
 }

@@ -15,8 +15,11 @@ init-floor twin of the ``_fast`` presets) starts from zero flow, or from
 the brute-force search init of the ``pixflow_search_*`` presets, and
 runs the exact gather path (``ops.relax_exact``; one CUDA kernel,
 ``kernels.exact_level``, at the sizes a block holds); every other level
-the fast path of ``_level_core``.  ``compute_optical_flow`` solves one
-direction.
+the fast path of ``_level_core``: with ``use_pallas`` three kernel
+launches a single-phase level, the kernel levels' contract (the
+reference's TPU branches) at or above ``pallas_min_pixels`` and the plain
+branch's borders below it, bit for bit those plain ops
+(``kernels.small_*``).  ``compute_optical_flow`` solves one direction.
 
 The spans (``utils.trace``): the stages ``pair.flow_prep`` (downscale,
 pre-blur and pyramid; then, a second stretch, the final upsample),
@@ -122,15 +125,27 @@ def _level_core(i0x: torch.Tensor, i0y: torch.Tensor, i1g: torch.Tensor,
     low-alpha diffusion.
 
     Non-coarsest levels take the fast path.  With ``params.use_pallas``
-    the per-phase warp is the CUDA kernel ``kernels.warp_tiled``, and a
-    level of at least ``pallas_min_pixels`` runs the kernels: a
-    single-phase level with ``fuse_level_blurs`` the fused branch
+    the per-phase warp is the CUDA kernel ``kernels.warp_tiled`` and the
+    level's solver runs hand-written kernels whose contract its size
+    picks.  A level of at least ``pallas_min_pixels`` keeps the
+    reference's TPU branches (edge-replicated windows): a single-phase
+    level with ``fuse_level_blurs`` the fused branch
     (``kernels.relax_phase`` + ``kernels.median5_diffuse``), any other
-    level ``kernels.relax_phase_unfused`` + ``kernels.median5`` per
-    phase -- the reference's TPU branches, whatever the device: the
-    wrappers pick the kernel or its plain version by where the tensors
-    live.  The coarsest level (and any ``relax_impl="exact"`` level) takes
-    the exact gather path: with ``params.use_pallas`` a level of at most
+    ``kernels.relax_phase_unfused`` + ``kernels.median5`` per phase, then
+    the plain diffusion.  A smaller level keeps the plain branch's
+    borders (out-of-image candidates rejected, reflect-101 blurs, the
+    median edge-replicated), bit for bit: single-phase and fused
+    ``kernels.small_relax_phase`` + ``kernels.small_median5_diffuse``,
+    three launches with the warp; any other schedule its target blurred
+    once, per phase ``kernels.small_relax_phase_unfused``, then
+    ``kernels.median5`` after each phase but the last and
+    ``kernels.small_median5_diffuse`` after the last.  Without
+    ``use_pallas`` the plain branch runs as PyTorch ops
+    (``relax_fast.relax_phase_fast``, ``im.median5``,
+    ``low_alpha_flow_diffusion``).  The wrappers pick the kernel or its
+    plain version by where the tensors live.  The coarsest level (and any
+    ``relax_impl="exact"`` level) takes the exact gather path: with
+    ``params.use_pallas`` a level of at most
     ``kernels.EXACT_LEVEL_MAX_PIXELS`` is the one kernel
     ``kernels.exact_level``, any larger one the plain loop
     (``kernels.exact_level_plain``)."""
@@ -143,6 +158,16 @@ def _level_core(i0x: torch.Tensor, i0y: torch.Tensor, i1g: torch.Tensor,
         update_mask = ((a0 > params.update_alpha_threshold)
                        & (a1 > params.update_alpha_threshold))
         kernel_level = _kernel_level(h, w, params)
+        kw, sigma = params.blurred_flow_kernel_width, params.blurred_flow_sigma
+        # the kernels of the level's contract
+        if kernel_level:
+            relax, relax_unfused, diffuse = (kernels.relax_phase,
+                                             kernels.relax_phase_unfused,
+                                             kernels.median5_diffuse)
+        else:
+            relax, relax_unfused, diffuse = (kernels.small_relax_phase,
+                                             kernels.small_relax_phase_unfused,
+                                             kernels.small_median5_diffuse)
 
         def warp_b(f_base):
             # per-phase gradient recentring (batched over B)
@@ -150,35 +175,38 @@ def _level_core(i0x: torch.Tensor, i0y: torch.Tensor, i1g: torch.Tensor,
                 return kernels.warp_tiled(i1g, f_base)
             return kernels.warp_tiled_plain(i1g, f_base)
 
-        if kernel_level and phases == 1 and params.fuse_level_blurs:
+        def diffused(planes):
+            return _from_planes(diffuse(planes, (1.0 - a0 * a1).contiguous(),
+                                        kw, sigma), nb)
+
+        if params.use_pallas and phases == 1 and params.fuse_level_blurs:
             # the relax kernel builds the blurred-flow target from f_base
             # (== the flow it blurs when there is exactly one phase); a
             # fused kernel does median + diffusion in one pass
             w1g = warp_b(flow)
-            fx, fy = kernels.relax_phase(
-                *_xy(flow), *_xy(flow), *_xy(w1g), i0x, i0y,
-                update_mask.float(), params, iters, params.fast_window)
-            planes = torch.stack([fx, fy], dim=1).reshape(2 * nb, h, w)
-            out = kernels.median5_diffuse(
-                planes, (1.0 - a0 * a1).contiguous(),
-                params.blurred_flow_kernel_width, params.blurred_flow_sigma)
-            return _from_planes(out, nb)
+            fx, fy = relax(*_xy(flow), *_xy(flow), *_xy(w1g), i0x, i0y,
+                           update_mask.float(), params, iters,
+                           params.fast_window)
+            return diffused(torch.stack([fx, fy], dim=1).reshape(2 * nb, h, w))
 
         # the target is blurred once per level (reflect-101); each phase
         # re-centres the warp on its input flow (f_base), relaxes bounded
-        # residuals against it and takes the median
+        # residuals against it and takes the median (a small level's last
+        # phase the median and the diffusion in one kernel)
         blurred_flow = _blur_flow(flow, params)
-        if kernel_level:
+        if params.use_pallas:
             bfx, bfy = _xy(blurred_flow)
             mask = update_mask.float()
-        for _ in range(phases):
+        for phase in range(phases):
             w1g = warp_b(flow)
-            if kernel_level:
-                fx, fy = kernels.relax_phase_unfused(
-                    *_xy(flow), *_xy(flow), *_xy(w1g), i0x, i0y, bfx, bfy,
-                    mask, params, iters, params.fast_window)
-                planes = kernels.median5(
-                    torch.stack([fx, fy], dim=1).reshape(2 * nb, h, w))
+            if params.use_pallas:
+                fx, fy = relax_unfused(*_xy(flow), *_xy(flow), *_xy(w1g), i0x,
+                                       i0y, bfx, bfy, mask, params, iters,
+                                       params.fast_window)
+                planes = torch.stack([fx, fy], dim=1).reshape(2 * nb, h, w)
+                if not kernel_level and phase == phases - 1:
+                    return diffused(planes)
+                planes = kernels.median5(planes)
             else:
                 planes = im.median5(_as_planes(relax_phase_fast(
                     flow, flow, w1g, i0x, i0y, blurred_flow, update_mask,

@@ -47,7 +47,13 @@ _SIGNATURES = {
                                + [_i, _i, _p], _i),
     "pano_relax_phase_unfused": ([_p] * 13 + [_i] * 5 + [_f] * 5
                                  + [_i, _i, _p], _i),
+    "pano_small_median5_diffuse": ([_p, _p, _p, _i, _i, _i, _p, _i, _p], _i),
+    "pano_small_relax_phase_fused": ([_p] * 11 + [_i] * 5 + [_p, _i]
+                                     + [_f] * 6 + [_i, _i, _p], _i),
+    "pano_small_relax_phase_unfused": ([_p] * 13 + [_i] * 5 + [_f] * 6
+                                       + [_i, _i, _p], _i),
     "pano_relax_smem": ([_i] * 4, _ll),
+    "pano_small_relax_smem": ([_i] * 4, _ll),
     "pano_smem_limit": ([], _ll),
     "pano_median5_diffuse_smem": ([_i], _ll),
     "pano_exact_level": ([_p] * 7 + [_i] * 5 + [_p, _i] + [_f] * 8 + [_p],

@@ -2,16 +2,19 @@
 wrappers and their plain PyTorch versions (counterpart of the reference's
 ``ops/pallas/kernels.py``).
 
-=========================  ======================================  ============================
-wrapper                    replaces (reference Pallas kernel)      plain version
-=========================  ======================================  ============================
-``warp_tiled``             ``warp_tiled_pallas``                   ``warp_tiled_plain``
-``relax_phase``            ``relax_phase_pallas(fuse_bf=True)``    ``relax_phase_fused_plain``
-``relax_phase_unfused``    ``relax_phase_pallas(fuse_bf=False)``   ``relax_phase_unfused_plain``
-``median5_diffuse``        ``median5_diffuse_pallas``              ``median5_diffuse_plain``
-``median5``                ``median5_pallas``                      ``ops.image.median5``
-``exact_level``            none: kernel work beyond the reference  ``exact_level_plain``
-=========================  ======================================  ============================
+=============================  ======================================  =================================
+wrapper                        replaces (reference Pallas kernel)      plain version
+=============================  ======================================  =================================
+``warp_tiled``                 ``warp_tiled_pallas``                   ``warp_tiled_plain``
+``relax_phase``                ``relax_phase_pallas(fuse_bf=True)``    ``relax_phase_fused_plain``
+``relax_phase_unfused``        ``relax_phase_pallas(fuse_bf=False)``   ``relax_phase_unfused_plain``
+``median5_diffuse``            ``median5_diffuse_pallas``              ``median5_diffuse_plain``
+``median5``                    ``median5_pallas``                      ``ops.image.median5``
+``exact_level``                none: kernel work beyond the reference  ``exact_level_plain``
+``small_relax_phase``          none: kernel work beyond the reference  ``small_relax_phase_plain``
+``small_relax_phase_unfused``  none: kernel work beyond the reference  ``small_relax_phase_unfused_plain``
+``small_median5_diffuse``      none: kernel work beyond the reference  ``small_median5_diffuse_plain``
+=============================  ======================================  =================================
 
 A wrapper checks its inputs and raises on anything the kernel does not
 take.  The plain versions take every iteration count, hat window and blur
@@ -24,9 +27,12 @@ it launches the kernel (built from ``csrc/`` on first use, see
 ``ops.build``) and raises if the launch is refused -- there is no
 fallback.  Each wrapper counts its kernel launches in its ``launches``
 attribute.  The plain versions compute exactly the kernel's contract,
-border semantics included (edge-replicated windows, not the validity
-masks and reflect-101 blurs of the plain level path, ``ops.relax_fast``;
-``exact_level`` keeps those of the exact loop, ``ops.relax_exact``).
+border semantics included: the kernel levels' edge-replicated windows;
+the small levels' (``small_*``, levels below ``pallas_min_pixels``) the
+validity masks and reflect-101 blurs of the plain level path
+(``ops.relax_fast``, ``ops.image``), whose ops are their plain versions,
+so that a small level gives the plain branch's bits on the card;
+``exact_level`` those of the exact loop, ``ops.relax_exact``.
 """
 
 from __future__ import annotations
@@ -37,13 +43,15 @@ import numpy as np
 import torch
 
 from panorama_opticalflow_tpu_torch.utils.config import FlowParams
-from panorama_opticalflow_tpu_torch.ops.image import (gaussian_kernel_1d,
+from panorama_opticalflow_tpu_torch.ops.image import (gaussian_blur,
+                                                      gaussian_kernel_1d,
                                                       median5 as median5_plain)
 from panorama_opticalflow_tpu_torch.ops.relax_exact import (
     _as_planes, _blur_flow, _from_planes, low_alpha_flow_diffusion,
     relax_iteration)
 from panorama_opticalflow_tpu_torch.ops.relax_fast import (
-    _pad2, sample_maps, shift_edge, tile_offsets, warp_by_flow_tiled)
+    _pad2, relax_phase_fast, sample_maps, shift_edge, tile_offsets,
+    warp_by_flow_tiled)
 
 WARP_TILE = (64, 128)
 WARP_MARGIN = 8
@@ -55,6 +63,9 @@ DIFFUSE_WIDTHS = (3, 5, 7, 9, 11, 13, 15)
 # exact_level kernel: one block holds every plane of a direction, 41 bytes
 # a pixel of shared memory (168 KB at this size; an H100 gives a block 227)
 EXACT_LEVEL_MAX_PIXELS = 4096
+# the most relax iterations one launch of a small level's kernel runs (its
+# halo grows by 2 D rows an iteration); a longer phase is several launches
+SMALL_RELAX_ITERS = 3
 
 
 def _check(name: str, tensors: dict, shapes: dict) -> torch.device:
@@ -564,8 +575,190 @@ def exact_level(i0x, i0y, i1g, a0, a1, flow, params: FlowParams,
 
 exact_level.launches = 0
 
+# ---------------------------------------------------------------------------
+# 6. the small levels (below pallas_min_pixels): the plain branch's borders
+# ---------------------------------------------------------------------------
+
+
+def _small_relax_plain(fx, fy, f_base, w1x, w1y, i0x, i0y, target, mask,
+                       params: FlowParams, iters: int, D: int):
+    out = relax_phase_fast(torch.stack([fx, fy], -1), f_base,
+                           torch.stack([w1x, w1y], -1), i0x, i0y, target,
+                           mask > 0, params, iters, D)
+    return out[..., 0].contiguous(), out[..., 1].contiguous()
+
+
+def small_relax_phase_plain(fx, fy, bx, by, w1x, w1y, i0x, i0y, mask,
+                            params: FlowParams, iters: int, D: int):
+    """The small relax kernel's contract on (B, H, W) planes: the plain
+    level's relaxation (``ops.relax_fast.relax_phase_fast``: a candidate
+    from outside the image is none) against the reflect-101 Gaussian of
+    f_base, the y pass first (``ops.relax_exact._blur_flow``).  Returns
+    (fx', fy')."""
+    f_base = torch.stack([bx, by], -1)
+    return _small_relax_plain(fx, fy, f_base, w1x, w1y, i0x, i0y,
+                              _blur_flow(f_base, params), mask, params,
+                              iters, D)
+
+
+def small_relax_phase_unfused_plain(fx, fy, bx, by, w1x, w1y, i0x, i0y, bfx,
+                                    bfy, mask, params: FlowParams,
+                                    iters: int, D: int):
+    """As ``small_relax_phase_plain`` against the given target
+    ``bfx``/``bfy``."""
+    return _small_relax_plain(fx, fy, torch.stack([bx, by], -1), w1x, w1y,
+                              i0x, i0y, torch.stack([bfx, bfy], -1), mask,
+                              params, iters, D)
+
+
+def small_median5_diffuse_plain(x: torch.Tensor, c: torch.Tensor,
+                                ksize: int = 15, sigma: float = 8.0
+                                ) -> torch.Tensor:
+    """The plain level's median and low-alpha diffusion on (2B, H, W)
+    planes with (B, H, W) coefficients ``c = 1 - a0*a1``: ``im.median5``
+    (edge-replicated), then ``c * gauss(med) + (1 - c) * med`` with the
+    reflect-101 Gaussian, y pass first
+    (``ops.relax_exact.low_alpha_flow_diffusion``)."""
+    med = median5_plain(x)
+    cc = c.repeat_interleave(2, dim=0)
+    return cc * gaussian_blur(med, ksize, sigma) + (1.0 - cc) * med
+
+
+def _small_check(name: str, h: int, w: int) -> None:
+    if min(h, w) < 2:
+        raise ValueError(f"{name}: needs H, W >= 2 (reflect-101 borders), "
+                         f"got {(h, w)}")
+
+
+def _small_scalars(params: FlowParams, w: int, D: int) -> tuple:
+    """The kernel's scalars in the plain ops' float32 values; a division
+    by a Python number is, on the card, PyTorch's product with the
+    reciprocal taken in double and rounded to float32."""
+    return (float(D - 1e-3), params.smoothness_coef,
+            params.gradient_step_size,
+            _f32(params.vertical_regularization_coef),
+            _f32(params.horizontal_regularization_coef), _f32(1.0 / w),
+            int(params.fold_descent_sample), int(params.w1_bf16))
+
+
+def _small_launches(wrapper, entry: str, planes: dict, params: FlowParams,
+                    iters: int, D: int, *taps) -> tuple:
+    """``iters`` iterations in launches of at most SMALL_RELAX_ITERS
+    (fewer where a wide hat window leaves no room in a block), each from
+    the flow the last one wrote; counts them on ``wrapper``."""
+    from panorama_opticalflow_tpu_torch.ops import build
+
+    name = wrapper.__name__
+    lib = build.load()
+    limit = lib.pano_smem_limit()
+    kw, fused = params.blurred_flow_kernel_width, int(bool(taps))
+    fit = [k for k in range(min(iters, SMALL_RELAX_ITERS), 0, -1)
+           if 0 < lib.pano_small_relax_smem(k, D, kw, fused) <= limit]
+    if not fit:
+        raise ValueError(f"{name} at D={D}: not one iteration's window fits "
+                         f"a block on this card")
+    nb, h, w = planes["fx"].shape
+    rest = [t.data_ptr() for t in list(planes.values())[2:]]
+    fx, fy = planes["fx"], planes["fy"]
+    for done in range(0, iters, fit[0]):
+        ofx, ofy = torch.empty_like(fx), torch.empty_like(fy)
+        _launch(name, entry, fx.data_ptr(), fy.data_ptr(), *rest,
+                ofx.data_ptr(), ofy.data_ptr(), nb, h, w,
+                min(fit[0], iters - done), D, *taps,
+                *_small_scalars(params, w, D), _stream())
+        wrapper.launches += 1
+        fx, fy = ofx, ofy
+    return fx, fy
+
+
+def small_relax_phase(fx, fy, bx, by, w1x, w1y, i0x, i0y, mask,
+                      params: FlowParams, iters: int, D: int):
+    """``iters`` relaxation iterations of a small level on (B, H, W)
+    float32 planes, the target computed in the kernel from ``bx``/``by``
+    (f_base): bit for bit ``small_relax_phase_plain`` on the same device.
+    ``mask`` is 1.0 where updatable.  Returns (fx', fy').  One launch up
+    to SMALL_RELAX_ITERS iterations."""
+    planes = {"fx": fx, "fy": fy, "bx": bx, "by": by, "w1x": w1x,
+              "w1y": w1y, "i0x": i0x, "i0y": i0y, "mask": mask}
+    dev = _relax_check("small_relax_phase", planes, iters, D)
+    _small_check("small_relax_phase", *fx.shape[1:])
+    kw = params.blurred_flow_kernel_width
+    if kw < 1:
+        raise ValueError(f"small_relax_phase: blur width >= 1, got {kw}")
+    if dev.type == "cpu":
+        return small_relax_phase_plain(fx, fy, bx, by, w1x, w1y, i0x, i0y,
+                                       mask, params, iters, D)
+    taps = np.ascontiguousarray(
+        gaussian_kernel_1d(kw, params.blurred_flow_sigma))
+    return _small_launches(small_relax_phase, "pano_small_relax_phase_fused",
+                           planes, params, iters, D,
+                           taps.ctypes.data_as(ctypes.c_void_p), kw)
+
+
+small_relax_phase.launches = 0
+
+
+def small_relax_phase_unfused(fx, fy, bx, by, w1x, w1y, i0x, i0y, bfx, bfy,
+                              mask, params: FlowParams, iters: int, D: int):
+    """``iters`` relaxation iterations of a small level on (B, H, W)
+    float32 planes against the given target ``bfx``/``bfy`` (each phase of
+    a multi-phase or unfused level): bit for bit
+    ``small_relax_phase_unfused_plain`` on the same device.  Returns
+    (fx', fy').  One launch up to SMALL_RELAX_ITERS iterations."""
+    planes = {"fx": fx, "fy": fy, "bx": bx, "by": by, "w1x": w1x,
+              "w1y": w1y, "i0x": i0x, "i0y": i0y, "bfx": bfx, "bfy": bfy,
+              "mask": mask}
+    dev = _relax_check("small_relax_phase_unfused", planes, iters, D)
+    _small_check("small_relax_phase_unfused", *fx.shape[1:])
+    if dev.type == "cpu":
+        return small_relax_phase_unfused_plain(fx, fy, bx, by, w1x, w1y, i0x,
+                                               i0y, bfx, bfy, mask, params,
+                                               iters, D)
+    return _small_launches(small_relax_phase_unfused,
+                           "pano_small_relax_phase_unfused", planes, params,
+                           iters, D)
+
+
+small_relax_phase_unfused.launches = 0
+
+
+def small_median5_diffuse(x: torch.Tensor, c: torch.Tensor, ksize: int = 15,
+                          sigma: float = 8.0) -> torch.Tensor:
+    """A small level's median and low-alpha diffusion on (2B, H, W) flow
+    planes with (B, H, W) coefficients ``c = 1 - a0*a1``: bit for bit
+    ``small_median5_diffuse_plain`` on the same device.  Any blur width
+    whose window fits the card's shared memory (the kernel unrolls 15)."""
+    if x.dim() != 3 or x.shape[0] % 2:
+        raise ValueError("small_median5_diffuse: x must be (2B, H, W)")
+    if int(ksize) != ksize or ksize < 1:
+        raise ValueError(f"small_median5_diffuse: ksize must be >= 1, got "
+                         f"{ksize}")
+    p2, h, w = x.shape
+    dev = _check("small_median5_diffuse", {"x": x, "c": c},
+                 {"x": (p2, h, w), "c": (p2 // 2, h, w)})
+    _small_check("small_median5_diffuse", h, w)
+    if dev.type == "cpu":
+        return small_median5_diffuse_plain(x, c, ksize, sigma)
+    if ksize not in DIFFUSE_WIDTHS:   # a window of up to 15 taps fits
+        from panorama_opticalflow_tpu_torch.ops import build
+
+        _card_limit("small_median5_diffuse", "ksize",
+                    build.load().pano_median5_diffuse_smem, range(1, 81),
+                    ksize)
+    taps = np.ascontiguousarray(gaussian_kernel_1d(ksize, sigma))
+    out = torch.empty_like(x)
+    _launch("small_median5_diffuse", "pano_small_median5_diffuse",
+            x.data_ptr(), c.data_ptr(), out.data_ptr(), p2, h, w,
+            taps.ctypes.data_as(ctypes.c_void_p), ksize, _stream())
+    small_median5_diffuse.launches += 1
+    return out
+
+
+small_median5_diffuse.launches = 0
+
 KERNELS = (warp_tiled, relax_phase, median5_diffuse,
-           relax_phase_unfused, median5, exact_level)
+           relax_phase_unfused, median5, exact_level, small_relax_phase,
+           small_relax_phase_unfused, small_median5_diffuse)
 
 
 def reset_launch_counts() -> None:

@@ -42,6 +42,14 @@ def to_torch(arr, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
+def _as_canvas(img, device) -> torch.Tensor:
+    """A uint8 canvas or stack of canvases, array or tensor, on ``device``
+    (a tensor keeps its dtype)."""
+    if isinstance(img, torch.Tensor):
+        return img.to(device)
+    return to_torch(np.asarray(img, np.uint8), device)
+
+
 def to_numpy(t: torch.Tensor) -> np.ndarray:
     """tensor -> numpy on the host, same dtype/layout."""
     return t.detach().cpu().numpy()

@@ -37,18 +37,12 @@ import numpy as np
 import torch
 
 from panorama_opticalflow_tpu_torch.utils.config import StitchConfig
-from panorama_opticalflow_tpu_torch import to_numpy, to_torch
+from panorama_opticalflow_tpu_torch import _as_canvas, to_numpy
 from panorama_opticalflow_tpu_torch.ops import image as im
 from panorama_opticalflow_tpu_torch.models import crop, novel_view, stitcher
 from panorama_opticalflow_tpu_torch.models.stitcher import (place_cols,
                                                           window_cols)
 from panorama_opticalflow_tpu_torch.utils import programs, trace
-
-
-def _as_canvas(img, device) -> torch.Tensor:
-    if isinstance(img, torch.Tensor):
-        return img.to(device)
-    return to_torch(np.asarray(img, np.uint8), device)
 
 
 def _stitch_pair_full(image_l: torch.Tensor, image_r: torch.Tensor,

@@ -3,10 +3,11 @@ the reference's ``models/pixflow.py``, CPU/PixFlow.hpp:28-457).
 
 Downscale, grey + alpha, pre-blur, a 0.9- (or 0.8-) factor pyramid, and
 per level: Jacobi relaxation (4-neighbour propagation + descent), median
-filter and low-alpha diffusion; then the final upsample and blur.  Both
-flow directions of a pair are solved together on a leading batch of 2,
-and ``compute_optical_flow_pairs`` solves N pairs in one pyramid descent
-on a leading batch of 2N (entry 2n + d is direction d of pair n).
+filter and low-alpha diffusion; then the final upsample and blur.  One
+pyramid descent, ``compute_optical_flow_pairs``, solves N pairs on a
+leading batch of 2N (entry 2n + d is direction d of pair n), each
+direction as alone; ``compute_optical_flow_pair`` is its N = 1 case and
+``compute_optical_flow`` that case's first direction.
 
 The pyramid runs unrolled (the reference's rung scan only shrinks XLA
 compiles, and its border padding differs); the port matches the
@@ -16,10 +17,8 @@ the brute-force search init of the ``pixflow_search_*`` presets, and
 runs the exact gather path (``ops.relax_exact``; one CUDA kernel,
 ``kernels.exact_level``, at the sizes a block holds); every other level
 the fast path of ``_level_core``: with ``use_pallas`` three kernel
-launches a single-phase level, the kernel levels' contract (the
-reference's TPU branches) at or above ``pallas_min_pixels`` and the plain
-branch's borders below it, bit for bit those plain ops
-(``kernels.small_*``).  ``compute_optical_flow`` solves one direction.
+launches a single-phase level, below ``pallas_min_pixels`` bit for bit
+the plain branch, which ``use_pallas=False`` runs at every size.
 
 The spans (``utils.trace``): the stages ``pair.flow_prep`` (downscale,
 pre-blur and pyramid; then, a second stretch, the final upsample),
@@ -45,7 +44,6 @@ from panorama_opticalflow_tpu_torch.ops import image as im
 from panorama_opticalflow_tpu_torch.ops import kernels
 from panorama_opticalflow_tpu_torch.ops.relax_exact import (
     _as_planes, _blur_flow, _from_planes, low_alpha_flow_diffusion)
-from panorama_opticalflow_tpu_torch.ops.relax_fast import relax_phase_fast
 from panorama_opticalflow_tpu_torch.utils import programs, trace
 
 
@@ -103,6 +101,23 @@ def _exact_kernel_level(h: int, w: int, params: FlowParams) -> bool:
             and h * w <= kernels.EXACT_LEVEL_MAX_PIXELS)
 
 
+def _fast_level_ops(h: int, w: int, params: FlowParams) -> tuple:
+    """A refining level's (warp, relax, relax_unfused, median, diffuse):
+    with ``use_pallas`` the wrappers of the level's contract, else the
+    plain branch as the small wrappers' plain versions."""
+    if not params.use_pallas:
+        return (kernels.warp_tiled_plain, kernels.small_relax_phase_plain,
+                kernels.small_relax_phase_unfused_plain, im.median5,
+                kernels.small_median5_diffuse_plain)
+    warp = kernels.warp_tiled if params.warp_pallas else \
+        kernels.warp_tiled_plain
+    if _kernel_level(h, w, params):
+        return (warp, kernels.relax_phase, kernels.relax_phase_unfused,
+                kernels.median5, kernels.median5_diffuse)
+    return (warp, kernels.small_relax_phase, kernels.small_relax_phase_unfused,
+            kernels.median5, kernels.small_median5_diffuse)
+
+
 def _level_runs(sizes: list[tuple[int, int]], params: FlowParams):
     """The levels below the coarsest, coarse to fine, in runs of one
     stage: (stage span's name, level indices)."""
@@ -124,28 +139,23 @@ def _level_core(i0x: torch.Tensor, i0y: torch.Tensor, i1g: torch.Tensor,
     (CPU/PixFlow.hpp:306-339): relaxation phases + median, then the
     low-alpha diffusion.
 
-    Non-coarsest levels take the fast path.  With ``params.use_pallas``
-    the per-phase warp is the CUDA kernel ``kernels.warp_tiled`` and the
-    level's solver runs hand-written kernels whose contract its size
-    picks.  A level of at least ``pallas_min_pixels`` keeps the
-    reference's TPU branches (edge-replicated windows): a single-phase
-    level with ``fuse_level_blurs`` the fused branch
-    (``kernels.relax_phase`` + ``kernels.median5_diffuse``), any other
-    ``kernels.relax_phase_unfused`` + ``kernels.median5`` per phase, then
-    the plain diffusion.  A smaller level keeps the plain branch's
-    borders (out-of-image candidates rejected, reflect-101 blurs, the
-    median edge-replicated), bit for bit: single-phase and fused
-    ``kernels.small_relax_phase`` + ``kernels.small_median5_diffuse``,
-    three launches with the warp; any other schedule its target blurred
-    once, per phase ``kernels.small_relax_phase_unfused``, then
-    ``kernels.median5`` after each phase but the last and
-    ``kernels.small_median5_diffuse`` after the last.  Without
-    ``use_pallas`` the plain branch runs as PyTorch ops
-    (``relax_fast.relax_phase_fast``, ``im.median5``,
-    ``low_alpha_flow_diffusion``).  The wrappers pick the kernel or its
-    plain version by where the tensors live.  The coarsest level (and any
-    ``relax_impl="exact"`` level) takes the exact gather path: with
-    ``params.use_pallas`` a level of at most
+    Non-coarsest levels take the fast path on the ops of
+    ``_fast_level_ops``.  With ``params.use_pallas`` a level of at least
+    ``pallas_min_pixels`` keeps the reference's TPU branches
+    (edge-replicated windows): single-phase with ``fuse_level_blurs``
+    ``kernels.relax_phase`` + ``kernels.median5_diffuse``, else per phase
+    ``kernels.relax_phase_unfused`` + ``kernels.median5``, then the plain
+    diffusion.  A smaller level, and every level without ``use_pallas``,
+    keeps the plain branch's borders (out-of-image candidates rejected,
+    reflect-101 blurs, the median edge-replicated), bit for bit:
+    single-phase and fused ``small_relax_phase`` +
+    ``small_median5_diffuse``, three launches with the warp; any other
+    schedule its target blurred once, per phase
+    ``small_relax_phase_unfused``, then ``median5`` after each phase but
+    the last and ``small_median5_diffuse`` after the last; the kernels
+    with ``use_pallas``, else their plain versions.  The coarsest level
+    (and any ``relax_impl="exact"`` level) takes the exact gather path:
+    with ``use_pallas`` a level of at most
     ``kernels.EXACT_LEVEL_MAX_PIXELS`` is the one kernel
     ``kernels.exact_level``, any larger one the plain loop
     (``kernels.exact_level_plain``)."""
@@ -158,32 +168,19 @@ def _level_core(i0x: torch.Tensor, i0y: torch.Tensor, i1g: torch.Tensor,
         update_mask = ((a0 > params.update_alpha_threshold)
                        & (a1 > params.update_alpha_threshold))
         kernel_level = _kernel_level(h, w, params)
+        warp, relax, relax_unfused, median, diffuse = _fast_level_ops(
+            h, w, params)
         kw, sigma = params.blurred_flow_kernel_width, params.blurred_flow_sigma
-        # the kernels of the level's contract
-        if kernel_level:
-            relax, relax_unfused, diffuse = (kernels.relax_phase,
-                                             kernels.relax_phase_unfused,
-                                             kernels.median5_diffuse)
-        else:
-            relax, relax_unfused, diffuse = (kernels.small_relax_phase,
-                                             kernels.small_relax_phase_unfused,
-                                             kernels.small_median5_diffuse)
-
-        def warp_b(f_base):
-            # per-phase gradient recentring (batched over B)
-            if params.use_pallas and params.warp_pallas:
-                return kernels.warp_tiled(i1g, f_base)
-            return kernels.warp_tiled_plain(i1g, f_base)
 
         def diffused(planes):
             return _from_planes(diffuse(planes, (1.0 - a0 * a1).contiguous(),
                                         kw, sigma), nb)
 
-        if params.use_pallas and phases == 1 and params.fuse_level_blurs:
-            # the relax kernel builds the blurred-flow target from f_base
-            # (== the flow it blurs when there is exactly one phase); a
-            # fused kernel does median + diffusion in one pass
-            w1g = warp_b(flow)
+        if phases == 1 and params.fuse_level_blurs:
+            # the relax op builds the blurred-flow target from f_base
+            # (== the flow it blurs when there is exactly one phase); the
+            # diffuse op does median + diffusion in one pass
+            w1g = warp(i1g, flow)
             fx, fy = relax(*_xy(flow), *_xy(flow), *_xy(w1g), i0x, i0y,
                            update_mask.float(), params, iters,
                            params.fast_window)
@@ -191,27 +188,19 @@ def _level_core(i0x: torch.Tensor, i0y: torch.Tensor, i1g: torch.Tensor,
 
         # the target is blurred once per level (reflect-101); each phase
         # re-centres the warp on its input flow (f_base), relaxes bounded
-        # residuals against it and takes the median (a small level's last
-        # phase the median and the diffusion in one kernel)
-        blurred_flow = _blur_flow(flow, params)
-        if params.use_pallas:
-            bfx, bfy = _xy(blurred_flow)
-            mask = update_mask.float()
+        # residuals against it and takes the median (a plain-border
+        # level's last phase the median and the diffusion in one op)
+        bfx, bfy = _xy(_blur_flow(flow, params))
+        mask = update_mask.float()
         for phase in range(phases):
-            w1g = warp_b(flow)
-            if params.use_pallas:
-                fx, fy = relax_unfused(*_xy(flow), *_xy(flow), *_xy(w1g), i0x,
-                                       i0y, bfx, bfy, mask, params, iters,
-                                       params.fast_window)
-                planes = torch.stack([fx, fy], dim=1).reshape(2 * nb, h, w)
-                if not kernel_level and phase == phases - 1:
-                    return diffused(planes)
-                planes = kernels.median5(planes)
-            else:
-                planes = im.median5(_as_planes(relax_phase_fast(
-                    flow, flow, w1g, i0x, i0y, blurred_flow, update_mask,
-                    params, iters, D=params.fast_window)))
-            flow = _from_planes(planes, nb)
+            w1g = warp(i1g, flow)
+            fx, fy = relax_unfused(*_xy(flow), *_xy(flow), *_xy(w1g), i0x,
+                                   i0y, bfx, bfy, mask, params, iters,
+                                   params.fast_window)
+            planes = torch.stack([fx, fy], dim=1).reshape(2 * nb, h, w)
+            if not kernel_level and phase == phases - 1:
+                return diffused(planes)
+            flow = _from_planes(median(planes), nb)
     else:
         exact = (kernels.exact_level if _exact_kernel_level(h, w, params)
                  else kernels.exact_level_plain)
@@ -331,73 +320,6 @@ def _gradients(imgs: torch.Tensor,
             im.gaussian_blur(im.sobel_y(imgs), gk, gs))
 
 
-def _floor_twin_flow(planes: torch.Tensor, hw: tuple[int, int], solve,
-                     params: FlowParams) -> torch.Tensor:
-    """Raised pyramid floor (_fast presets): ``planes`` (images and
-    alphas, (N, H, W)) are resized progressively down to the sizes below
-    the floor, ``solve(small_planes, twin_params)`` runs the init +
-    exact relaxation there, and its (B, h, w, 2) flow is upsampled to
-    ``hw`` as this level's incoming flow.  A host range ``flow.level``
-    a size; the last one holds the solve and the upsample."""
-    *down, (th, tw) = _sub_floor_sizes(*hw, params)
-    for s in down:
-        with _level_span(s):
-            planes = im.resize_planes(planes, s, "linear")
-    with _level_span((th, tw)):
-        planes = im.resize_planes(planes, (th, tw), "linear")
-        f_t = solve(planes, dataclasses.replace(params, pyr_stop_size=0))
-        hh, ww = hw
-        up = _from_planes(im.resize_planes(_as_planes(f_t), (hh, ww),
-                                           "cubic"), f_t.shape[0])
-        # two Python floats: the products a two-element float32 tensor
-        # gives
-        return torch.stack([up[..., 0] * (ww / tw), up[..., 1] * (hh / th)],
-                           -1)
-
-
-def _twin_flow(i0: torch.Tensor, i1: torch.Tensor, alpha0: torch.Tensor,
-               alpha1: torch.Tensor, hint: str,
-               params: FlowParams) -> torch.Tensor:
-    """The init-floor twin of one direction's coarsest level, (H, W)
-    planes above a raised floor: its (H, W, 2) incoming flow."""
-    return _floor_twin_flow(
-        torch.stack([i0, i1, alpha0, alpha1]), i0.shape,
-        lambda p, tp: patch_match_level(*p, None, hint, tp)[None],
-        params)[0]
-
-
-def _twin_flow_batched(imgs: torch.Tensor, alphas: torch.Tensor,
-                       hints: tuple[str, str],
-                       params: FlowParams) -> torch.Tensor:
-    """``_twin_flow`` for both directions of N pairs, (2N, H, W) planes
-    as ``patch_match_level_batched`` takes them."""
-    nb = imgs.shape[0]
-    return _floor_twin_flow(
-        torch.cat([imgs, alphas]), imgs.shape[1:],
-        lambda p, tp: patch_match_level_batched(p[:nb], p[nb:], None, hints,
-                                                tp),
-        params)
-
-
-def patch_match_level(i0: torch.Tensor, i1: torch.Tensor,
-                      alpha0: torch.Tensor, alpha1: torch.Tensor,
-                      flow: torch.Tensor | None, hint: str,
-                      params: FlowParams) -> torch.Tensor:
-    """One pyramid level for one direction (CPU/PixFlow.hpp:272-340):
-    (H, W) planes, ``flow`` (H, W, 2), or None at the coarsest level,
-    which then starts from the initial flow (at a raised floor the caller
-    passes the init-floor twin's flow instead: ``_twin_flow``)."""
-    gx, gy = _gradients(torch.stack([i0, i1]), params)
-    i1g = torch.stack([gx[1], gy[1]], dim=-1)
-
-    coarsest = flow is None
-    if coarsest:
-        flow = _initial_flow(i0, i1, alpha0, alpha1, hint, params)
-
-    return _level_core(gx[:1], gy[:1], i1g[None], alpha0[None],
-                       alpha1[None], flow[None], params, coarsest)[0]
-
-
 def _partner(x: torch.Tensor) -> torch.Tensor:
     """(2N, ...) planes, entry 2n + d the image d of pair n: each entry's
     partner, the other image of its pair."""
@@ -430,11 +352,41 @@ def patch_match_level_batched(imgs: torch.Tensor, alphas: torch.Tensor,
     return _level_core(gx, gy, i1g, a0, a1, flow, params, coarsest)
 
 
+def _twin_flow_batched(imgs: torch.Tensor, alphas: torch.Tensor,
+                       hints: tuple[str, str],
+                       params: FlowParams) -> torch.Tensor:
+    """Raised pyramid floor (_fast presets): the init-floor twin of the
+    coarsest level for both directions of N pairs, (2N, H, W) planes as
+    ``patch_match_level_batched`` takes them.  The images and alphas are
+    resized progressively down to the sizes below the floor, the init +
+    exact relaxation runs there, and its (2N, h, w, 2) flow is upsampled
+    to (H, W) as the coarsest level's incoming flow.  A host range
+    ``flow.level`` a size; the last one holds the solve and the
+    upsample."""
+    nb, hh, ww = imgs.shape
+    planes = torch.cat([imgs, alphas])
+    *down, (th, tw) = _sub_floor_sizes(hh, ww, params)
+    for s in down:
+        with _level_span(s):
+            planes = im.resize_planes(planes, s, "linear")
+    with _level_span((th, tw)):
+        planes = im.resize_planes(planes, (th, tw), "linear")
+        f_t = patch_match_level_batched(
+            planes[:nb], planes[nb:], None, hints,
+            dataclasses.replace(params, pyr_stop_size=0))
+        up = _from_planes(im.resize_planes(_as_planes(f_t), (hh, ww),
+                                           "cubic"), nb)
+        # two Python floats: the products a two-element float32 tensor
+        # gives
+        return torch.stack([up[..., 0] * (ww / tw), up[..., 1] * (hh / th)],
+                           -1)
+
+
 def _preprocess(rgba: torch.Tensor, params: FlowParams,
                 out_hw: tuple[int, int]) -> tuple[torch.Tensor, torch.Tensor]:
     """Downscale + grey/alpha floats + pre-blur (CPU/PixFlow.hpp:78-103)
-    of an (H, W, 4) image or an (N, H, W, 4) stack."""
-    r = im.resize_u8(rgba, out_hw, "cubic", row_axis=rgba.dim() - 3)
+    of an (N, H, W, 4) stack."""
+    r = im.resize_u8(rgba, out_hw, "cubic", row_axis=1)
     g = im.rgba_to_gray_u8(r).float() / 255.0
     a = r[..., 3].float() / 255.0
     g = im.gaussian_blur(g, params.pre_blur_kernel_width,
@@ -450,41 +402,6 @@ def _final_flow(planes: torch.Tensor, hw: tuple[int, int],
     planes = planes * (1.0 / params.downscale_factor)
     return im.gaussian_blur(planes, params.final_flow_blur_kernel_width,
                             params.final_flow_blur_sigma)
-
-
-def compute_optical_flow(rgba0: torch.Tensor, rgba1: torch.Tensor,
-                         params: FlowParams, hint: str) -> torch.Tensor:
-    """The solver for one direction (CPU/PixFlow.hpp:72-135): returns the
-    (H, W, 2) float32 flow from ``rgba0`` to ``rgba1``, (H, W, 4) uint8,
-    at the input resolution."""
-    h, w = rgba0.shape[:2]
-    dh = int(h * params.downscale_factor)
-    dw = int(w * params.downscale_factor)
-    sizes = pyramid_sizes(dh, dw, params)
-    with trace.span("pair.flow_prep", stage=True):
-        i0, a0 = _preprocess(rgba0, params, (dh, dw))
-        i1, a1 = _preprocess(rgba1, params, (dh, dw))
-        pyr = _build_pyramid(torch.stack([i0, i1, a0, a1]), sizes)
-
-    top = len(sizes) - 1
-    flow = None
-    if _sub_floor_sizes(*sizes[top], params):
-        with trace.span("pair.flow_floor_twin", stage=True):
-            flow = _twin_flow(*pyr[top], hint, params)
-    with trace.span("pair.flow_coarsest", stage=True), \
-            _level_span(sizes[top]):
-        flow = patch_match_level(*pyr[top], flow, hint, params)
-    for stage, levels in _level_runs(sizes, params):
-        with trace.span(stage, stage=True):
-            for level in levels:
-                with _level_span(sizes[level]):
-                    flow = im.resize(flow, sizes[level], "cubic")
-                    flow = flow * (1.0 / params.pyr_scale_factor)
-                    flow = patch_match_level(*pyr[level], flow, hint,
-                                             params)
-    with trace.span("pair.flow_prep", stage=True):
-        return _from_planes(_final_flow(_as_planes(flow[None]), (h, w),
-                                        params), 1)[0]
 
 
 def compute_optical_flow_pairs(rgba0: torch.Tensor, rgba1: torch.Tensor,
@@ -546,3 +463,13 @@ def compute_optical_flow_pair(rgba0: torch.Tensor, rgba1: torch.Tensor,
     flow01, flow10 = compute_optical_flow_pairs(rgba0[None], rgba1[None],
                                                 params, hint01, hint10)
     return flow01[0], flow10[0]
+
+
+def compute_optical_flow(rgba0: torch.Tensor, rgba1: torch.Tensor,
+                         params: FlowParams, hint: str) -> torch.Tensor:
+    """The solver for one direction (CPU/PixFlow.hpp:72-135): returns the
+    (H, W, 2) float32 flow from ``rgba0`` to ``rgba1``, (H, W, 4) uint8,
+    at the input resolution.  The first direction of
+    ``compute_optical_flow_pair`` with ``hint`` for both directions, which
+    solves it as alone."""
+    return compute_optical_flow_pair(rgba0, rgba1, params, hint, hint)[0]

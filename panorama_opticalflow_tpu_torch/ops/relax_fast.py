@@ -10,10 +10,12 @@ the error function (CPU/PixFlow.hpp:407-456) into stencils:
    evaluated separably (an x pass, then y passes), which also yields the
    neighbour-offset sample maps and the analytic derivative maps.
 
-This module is the unfused plain path (levels below
-``FlowParams.pallas_min_pixels``, or ``use_pallas=False``), on a leading
-batch of flow directions.  ``warp_by_flow_tiled`` is also the plain
-version of the CUDA warp kernel (``ops.kernels.warp_tiled``).
+On a leading batch of flow directions, ``relax_phase_fast`` is the plain
+branch's relaxation: the plain version of the small levels' relax kernels
+(``ops.kernels.small_relax_phase*``, levels below
+``FlowParams.pallas_min_pixels``), which ``use_pallas=False`` runs at
+every level.  ``warp_by_flow_tiled`` is the plain version of the CUDA
+warp kernel (``ops.kernels.warp_tiled``).
 """
 
 from __future__ import annotations

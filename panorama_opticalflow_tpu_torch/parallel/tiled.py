@@ -51,6 +51,7 @@ import math
 import numpy as np
 import torch
 
+from panorama_opticalflow_tpu_torch import _as_canvas
 from panorama_opticalflow_tpu_torch.models import novel_view, pixflow, stitcher
 from panorama_opticalflow_tpu_torch.models.stitcher import (place_cols,
                                                           window_cols)
@@ -709,12 +710,6 @@ def _tiled_stitch_pair_body(image_l, image_r, *, cfg: StitchConfig,
                             im.crop_x(frl, length, 2), blend, comm, tc)
     return _tiled_gather(canvas_map, image_l, image_r, merged, cfg, comm,
                          h_global)
-
-
-def _as_canvas(img, device) -> torch.Tensor:
-    if isinstance(img, torch.Tensor):
-        return img.to(device)
-    return torch.from_numpy(np.ascontiguousarray(img, np.uint8)).to(device)
 
 
 def _tiled_stitch(image_l, image_r, cfg: StitchConfig, comm: RowComm,

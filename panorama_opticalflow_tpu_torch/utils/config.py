@@ -67,14 +67,15 @@ class FlowParams:
     # Reuse the accepted propagation candidate's sample as the descent
     # residual instead of re-sampling at the accepted flow.
     fold_descent_sample: bool = True
-    # In the port these fields mean "use the hand-written CUDA kernels"
-    # (ops/kernels) on levels of at least pallas_min_pixels: the fused
-    # single-phase level (relax_phase + median5_diffuse) when
-    # fuse_level_blurs is set and relax_phases is 1, else per phase
-    # relax_phase_unfused + median5; and the tiled warp on every fast
-    # level when warp_pallas is set.  The branch taken does not depend on
-    # the device: a wrapper runs its plain PyTorch version for CPU tensors
-    # only.  use_pallas=False selects the unfused plain path.
+    # In the port use_pallas means "use the hand-written CUDA kernels"
+    # (ops/kernels) on every refining level: at least pallas_min_pixels
+    # the kernel levels' contract, below it the small_* kernels with the
+    # plain branch's borders and bits; fused (one relax + one median and
+    # diffusion) when fuse_level_blurs is set and relax_phases is 1, else
+    # per phase; and the tiled warp when warp_pallas is set.  The branch
+    # taken does not depend on the device: a wrapper runs its plain
+    # PyTorch version for CPU tensors only.  use_pallas=False runs the
+    # plain branch (the small kernels' plain versions) at every size.
     use_pallas: bool = True
     pallas_min_pixels: int = 128 * 512
     # Quantise the warped gradients to bfloat16 once at load; all

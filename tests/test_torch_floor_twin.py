@@ -1,7 +1,9 @@
 """The init-floor twin of the ``_fast`` presets as a stage of its own
-(``models/pixflow.py``): ``compute_optical_flow_pairs`` and
-``compute_optical_flow`` solve it under ``pair.flow_floor_twin`` before
-the coarsest level and hand its flow to that level as its incoming flow.
+(``models/pixflow.py``): ``compute_optical_flow_pairs`` and the row-tiled
+``parallel.tiled.tiled_compute_optical_flow_pair`` solve it
+(``pixflow._twin_flow_batched``) before the coarsest level, the first
+under ``pair.flow_floor_twin``, and hand its flow to that level as its
+incoming flow.
 
 On the CPU, at canvases whose flow has a top level above the 64 px floor
 (so the twin runs) and whose blend field is computed at half resolution:

@@ -179,12 +179,15 @@ def test_use_pallas_false_keeps_the_plain_branch(monkeypatch):
     assert _route(monkeypatch, (2, 45, 41), params) == []
 
 
-@pytest.mark.parametrize("alg,changes", [
+SCHEDULES = [
     ("pixflow_low", {}),
     ("pixflow_low_fast", {}),
     ("pixflow_low", {"relax_phases": 2, "relax_iters_per_phase": 2}),
     ("pixflow_low", {"fuse_level_blurs": False}),
-    ("pixflow_low", {"warp_pallas": False})])
+    ("pixflow_low", {"warp_pallas": False})]
+
+
+@pytest.mark.parametrize("alg,changes", SCHEDULES)
 @pytest.mark.parametrize("shape", [(2, 33, 30), (4, 50, 45)])
 def test_the_small_route_gives_the_plain_branch_bits(rng, alg, changes,
                                                      shape):
@@ -198,6 +201,21 @@ def test_the_small_route_gives_the_plain_branch_bits(rng, alg, changes,
     if params.warp_pallas:
         # the kernel warp's plain version is the plain branch's warp
         assert torch.equal(got, pf._level_core(*inputs[:-1], plain, False))
+
+
+@pytest.mark.parametrize("alg,changes", SCHEDULES)
+@pytest.mark.parametrize("shape", [(2, 40, 50), (4, 130, 140)])
+def test_use_pallas_false_gives_the_plain_branch_at_kernel_sizes(
+        rng, alg, changes, shape):
+    """Without use_pallas a level of kernel size runs the plain branch
+    (the small wrappers' plain versions), not the kernel levels'
+    contract: every bit of it, whatever the schedule."""
+    inputs = _level(rng, *shape, alg=alg)
+    params = dataclasses.replace(inputs[-1], use_pallas=False,
+                                 pallas_min_pixels=2000, **changes)
+    assert shape[1] * shape[2] >= params.pallas_min_pixels
+    assert torch.equal(pf._level_core(*inputs[:-1], params, False),
+                       _plain_branch(*inputs[:-1], params))
 
 
 def test_the_small_route_equals_the_benchmark_reference(rng):

@@ -12,7 +12,9 @@ csrc/, then runs ten phases and prints one JSON object per phase line:
      four and batch4's; the small levels' relax, unfused relax and
      median5+diffuse, every bit equal to the plain branch's ops, timed
      beside them at six's largest plain level (2, 244, 218) and batch4's
-     (8, 160, 395)), at the 9000x4000 headline's finest-level
+     (8, 160, 395); novel_view, every byte equal to the stage's ops, at
+     six's 4000x3584 window across the 9000-wide canvas's seam and on
+     four's whole 4000x9000 canvas), at the 9000x4000 headline's finest-level
      shapes, at a middle
      level of its pyramid and at a ragged small shape, with kernel and
      plain median times (CUDA events; the kernel table keeps the finest
@@ -181,6 +183,7 @@ KERNEL_FILES = {
     "small_relax_phase": ("csrc/relax_phase.cu", None),
     "small_relax_phase_unfused": ("csrc/relax_phase.cu", None),
     "small_median5_diffuse": ("csrc/median5_diffuse.cu", None),
+    "novel_view": ("csrc/novel_view.cu", None),
 }
 # the 36 MP fidelity harness's schedule knobs (tools/fidelity_36mp.py)
 SCHEDULES = {"production": {},
@@ -290,6 +293,16 @@ B_EXACT = (("six", (2, 30, 27)), ("four", (2, 27, 67)),
 # level of the six-photo chain's pyramid and of batch4's batched descent
 # (the table keeps the six-photo level's times)
 B_SMALL = (("six_small", (2, 244, 218)), ("batch4_small", (8, 160, 395)))
+# phase B's novel-view shapes (1, H, window width) on a 9000-wide canvas:
+# six's pair window, at the chain's first roll (across the seam), and
+# four's whole canvas (the table keeps four's times)
+B_NOVEL = (("six_window", (1, 4000, 3584)), ("four", (1, 4000, 9000)))
+NOVEL_CANVAS_W, NOVEL_ROLL = 9000, 8100
+# the novel view's operations a pixel: each view's source position 6, its
+# tiled offsets and residuals 12; the combiner's flow magnitudes 10, colour
+# difference and deghost 10, softmax arguments 12, softmax 10, weights 6,
+# three channels' mix, rounding and clamp 18
+NOVEL_VIEW_OPS = 2 * (6 + 12) + 10 + 10 + 12 + 10 + 6 + 18
 
 
 def bound(nbytes: int, ops: int) -> dict:
@@ -532,6 +545,41 @@ def small_cases(dev, rng, b: int, h: int, w: int) -> list[dict]:
              nbytes=4 * 5 * px, ops=(MEDIAN_OPS + 2 * 2 * kw + 4) * 2 * px)]
 
 
+def novel_cases(dev, rng, b: int, h: int, width: int) -> list[dict]:
+    """novel_view on a stack of b pairs of (h, NOVEL_CANVAS_W) canvases
+    (random RGBA with transparent patches) with smooth flows and a blend
+    ramp on a window ``width`` wide at NOVEL_ROLL (none where it is the
+    whole canvas): against its plain version, the stage's PyTorch ops on
+    the card, every byte equal.  Bytes: the window's flows, blend and two
+    samples read once, the whole canvas written."""
+    import numpy as np
+    import torch
+
+    from panorama_opticalflow_tpu_torch.ops import kernels
+
+    w = NOVEL_CANVAS_W
+    imgs = torch.from_numpy(rng.integers(0, 256, (2, b, h, w, 4),
+                                         dtype=np.uint8)).to(dev)
+    imgs[..., 3][torch.from_numpy(rng.random((2, b, h, w)) < 0.05).to(
+        dev)] = 0
+    yy, xx = np.mgrid[0:h, 0:width].astype(np.float32)
+    f = np.stack([20 * np.sin(yy / 370.0) + 5 * np.cos(xx / 530.0),
+                  8 * np.cos(yy / 290.0) - 3 * np.sin(xx / 410.0)], -1)
+    flows = [torch.from_numpy(np.stack([s * f + rng.standard_normal(
+        f.shape).astype(np.float32)] * b)).to(dev) for s in (1, -1)]
+    blend = torch.linspace(0, 1, width, device=dev).expand(b, h, width)
+    blend = blend.contiguous()
+    window = None if width == w else (
+        torch.full((), NOVEL_ROLL, dtype=torch.int64, device=dev), width)
+    args = (imgs[0], imgs[1], *flows, blend, window)
+    px = b * h * width
+    return [dict(name="novel_view", dims=[b, h, w, width], tol=0.0,
+                 kernel=lambda: kernels.novel_view(*args),
+                 plain=lambda: kernels.novel_view_plain(*args),
+                 nbytes=(2 * 8 + 4 + 2 * 4) * px + 4 * b * h * w,
+                 ops=NOVEL_VIEW_OPS * px)]
+
+
 def as_tensor(out):
     import torch
 
@@ -551,7 +599,8 @@ def phase_b(dev) -> dict:
     shapes = ([(tag, shape, kernel_cases) for tag, shape in
                B_SHAPES + (B_BATCHED,)]
               + [(tag, shape, exact_cases) for tag, shape in B_EXACT]
-              + [(tag, shape, small_cases) for tag, shape in B_SMALL])
+              + [(tag, shape, small_cases) for tag, shape in B_SMALL]
+              + [(tag, shape, novel_cases) for tag, shape in B_NOVEL])
     for tag, (b, h, w), cases in shapes:
         for case in cases(dev, rng, b, h, w):
             name = case["name"]
@@ -560,7 +609,10 @@ def phase_b(dev) -> dict:
                 continue
             got = as_tensor(case["kernel"]())
             torch.cuda.synchronize()
-            diff = (got - as_tensor(case["plain"]())).abs()
+            ref = as_tensor(case["plain"]())
+            if got.dtype == torch.uint8:   # bytes: no wrap-around
+                got, ref = got.int(), ref.int()
+            diff = (got - ref).abs()
             err = diff.max().item()
             rec = {"phase": "B", "kernel": name, "shape": tag,
                    "dims": case["dims"], "max_abs_err": err,
@@ -598,7 +650,7 @@ def phase_b(dev) -> dict:
                                                results[name]["max_abs_err"])
             emit(rec)
             check(ok, f"{name} {tag}: {rec}")
-            del got, diff
+            del got, ref, diff
         torch.cuda.empty_cache()
     return results
 
@@ -796,7 +848,8 @@ def expected_launches(windows, canvas_h: int, params, tiles=None) -> dict:
     (_fast) every level of pyramid_sizes is a fast level; otherwise the
     coarsest is exact.  The exact level (the coarsest, or the _fast
     presets' init-floor twin) runs exact_level once where a block holds
-    it.  ``tiles`` = (n, TileConfig) counts the row-tiled
+    it.  Every pair runs novel_view once, a stack of pairs or of row
+    tiles once too.  ``tiles`` = (n, TileConfig) counts the row-tiled
     stitch: a level runs tiled or whole by parallel.tiled.tiled_levels,
     and the pallas_min_pixels gate sees the shape its kernels get, a tiled
     level's halo-extended tile (ceil(rows / n) + 2 * halo rows).  In
@@ -819,6 +872,7 @@ def expected_launches(windows, canvas_h: int, params, tiles=None) -> dict:
         exact = (pixflow._sub_floor_sizes(*sizes[-1], params)
                  or sizes)[-1]
         n["exact_level"] += pixflow._exact_kernel_level(*exact, params)
+        n["novel_view"] += 1
         if tiles is not None:
             nt, tc = tiles
             sizes = [(-(-h // nt) + 2 * tc.level_halo if t else h, w)
@@ -1440,7 +1494,8 @@ KERNEL_SYMBOLS = {"warp_tiled_kernel<": ("warp_tiled",),
                                           "relax_phase_unfused"),
                   "median5_diffuse_kernel<": ("median5_diffuse",),
                   "median5_kernel<": ("median5",),
-                  "exact_level_kernel(": ("exact_level",)}
+                  "exact_level_kernel(": ("exact_level",),
+                  "novel_view_kernel<": ("novel_view",)}
 
 
 def profiled_launches(rows, counted: dict, expected: dict, tag: str) -> dict:

@@ -40,8 +40,6 @@ from panorama_opticalflow_tpu_torch.utils.config import StitchConfig
 from panorama_opticalflow_tpu_torch import _as_canvas, to_numpy
 from panorama_opticalflow_tpu_torch.ops import image as im
 from panorama_opticalflow_tpu_torch.models import crop, novel_view, stitcher
-from panorama_opticalflow_tpu_torch.models.stitcher import (place_cols,
-                                                          window_cols)
 from panorama_opticalflow_tpu_torch.utils import programs, trace
 
 
@@ -149,7 +147,6 @@ def _stitch_pair_windowed_body(image_l: torch.Tensor,
     when ``gather_safe`` (crop.gather_window_safe), else on the full
     canvas.  ``roll`` is an int or a 0-d int64 tensor on the canvases'
     device, as it is traced in the reference."""
-    w = image_l.shape[1]
     with trace.span("pair.blend", stage=True):
         canvas_map = stitcher.match_images(image_l, image_r)
         ol = stitcher.extract_overlap(image_l, canvas_map)
@@ -159,10 +156,9 @@ def _stitch_pair_windowed_body(image_l: torch.Tensor,
     flow_lr_w, flow_rl_w = crop.cropped_flows_window(ol, orr, roll, width,
                                                      cfg)
     with trace.span("pair.novel_view", stage=True):
-        merged_w = novel_view.combine_novel_views(
-            window_cols(ol, roll, width), window_cols(orr, roll, width),
-            flow_lr_w, flow_rl_w, blend_w)
-        merged = place_cols(merged_w, roll, w)
+        merged = novel_view.combine_novel_views(ol, orr, flow_lr_w,
+                                                flow_rl_w, blend_w,
+                                                (roll, width))
     window = (roll, width) if gather_safe else None
     with trace.span("pair.composite", stage=True):
         return stitcher.gather_composite(canvas_map, image_l, image_r,

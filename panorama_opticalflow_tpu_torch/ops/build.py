@@ -59,6 +59,8 @@ _SIGNATURES = {
     "pano_exact_level": ([_p] * 7 + [_i] * 5 + [_p, _i] + [_f] * 8 + [_p],
                          _i),
     "pano_exact_level_smem": ([_i], _ll),
+    "pano_novel_view": ([_p] * 6 + [_i] * 4 + [_ll] * 4 + [_p, _ll, _f, _i,
+                                                          _p], _i),
 }
 
 

@@ -14,6 +14,7 @@ wrapper                        replaces (reference Pallas kernel)      plain ver
 ``small_relax_phase``          none: kernel work beyond the reference  ``small_relax_phase_plain``
 ``small_relax_phase_unfused``  none: kernel work beyond the reference  ``small_relax_phase_unfused_plain``
 ``small_median5_diffuse``      none: kernel work beyond the reference  ``small_median5_diffuse_plain``
+``novel_view``                 none: kernel work beyond the reference  ``novel_view_plain``
 =============================  ======================================  =================================
 
 A wrapper checks its inputs and raises on anything the kernel does not
@@ -32,7 +33,9 @@ the small levels' (``small_*``, levels below ``pallas_min_pixels``) the
 validity masks and reflect-101 blurs of the plain level path
 (``ops.relax_fast``, ``ops.image``), whose ops are their plain versions,
 so that a small level gives the plain branch's bits on the card;
-``exact_level`` those of the exact loop, ``ops.relax_exact``.
+``exact_level`` those of the exact loop, ``ops.relax_exact``;
+``novel_view`` those of the novel-view stage's ops (``ops.warp``'s
+samplers, the combiner, the window's columns).
 """
 
 from __future__ import annotations
@@ -52,6 +55,8 @@ from panorama_opticalflow_tpu_torch.ops.relax_exact import (
 from panorama_opticalflow_tpu_torch.ops.relax_fast import (
     _pad2, relax_phase_fast, sample_maps, shift_edge, tile_offsets,
     warp_by_flow_tiled)
+from panorama_opticalflow_tpu_torch.ops.warp import (
+    sample_nearest_wrap, sample_nearest_wrap_tiled)
 
 WARP_TILE = (64, 128)
 WARP_MARGIN = 8
@@ -756,9 +761,189 @@ def small_median5_diffuse(x: torch.Tensor, c: torch.Tensor, ksize: int = 15,
 
 small_median5_diffuse.launches = 0
 
+# ---------------------------------------------------------------------------
+# 7. the novel-view stage: both samplers, the combiner, the window's place
+# ---------------------------------------------------------------------------
+
+# Deghost constants (CPU/OpticalFlow.cpp:57-59)
+K_COLOR_DIFF_COEF = 10.0
+K_SOFTMAX_SHARPNESS = 10.0
+K_FLOW_MAG_COEF = 100.0
+
+# Windows at least this large take the tiled sampler, smaller ones the
+# exact gather -- the reference's switch, kept so both packages sample
+# identically at every canvas size.
+TILED_SAMPLER_MIN_H = 256
+TILED_SAMPLER_MIN_W = 512
+
+
+def _tiled_sampler(h: int, w: int) -> bool:
+    return h >= TILED_SAMPLER_MIN_H and w >= TILED_SAMPLER_MIN_W
+
+
+def combine_views_plain(image_l: torch.Tensor, image_r: torch.Tensor,
+                        flow_l_to_r: torch.Tensor, flow_r_to_l: torch.Tensor,
+                        blend: torch.Tensor) -> torch.Tensor:
+    """combineNovelViews (CPU/OpticalFlow.cpp:30-92): colorL samples imageL
+    through flowRtoL scaled by blendR, colorR samples imageR through
+    flowLtoR scaled by blendL; transparent where either sample has zero
+    alpha, otherwise a ghost-gated softmax mix.  Images (H, W, 4), flows
+    (H, W, 2) and blend (H, W), or all with a leading N."""
+    h, w = image_l.shape[-3:-1]
+    blend_r = blend
+    blend_l = 1.0 - blend_r
+    sampler = (sample_nearest_wrap_tiled if _tiled_sampler(h, w)
+               else sample_nearest_wrap)
+    color_l = sampler(image_l, flow_r_to_l, blend_r).float()
+    color_r = sampler(image_r, flow_l_to_r, blend_l).float()
+
+    def mag(f):
+        return torch.sqrt(f[..., 0] * f[..., 0] + f[..., 1] * f[..., 1]) / w
+
+    mag_lr, mag_rl = mag(flow_l_to_r), mag(flow_r_to_l)
+    color_diff = (torch.abs(color_l[..., 0] - color_r[..., 0])
+                  + torch.abs(color_l[..., 1] - color_r[..., 1])
+                  + torch.abs(color_l[..., 2] - color_r[..., 2])) / 255.0
+    deghost = torch.tanh(color_diff * K_COLOR_DIFF_COEF)
+    alpha_l = color_l[..., 3] / 255.0
+    alpha_r = color_r[..., 3] / 255.0
+
+    # numerically-stable softmax (the reference's raw exps overflow)
+    a_l = K_SOFTMAX_SHARPNESS * blend_l * alpha_l \
+        * (1.0 + K_FLOW_MAG_COEF * mag_rl)
+    a_r = K_SOFTMAX_SHARPNESS * blend_r * alpha_r \
+        * (1.0 + K_FLOW_MAG_COEF * mag_lr)
+    m = torch.maximum(a_l, a_r)
+    exp_l = torch.exp(a_l - m)
+    exp_r = torch.exp(a_r - m)
+    sum_exp = exp_l + exp_r + 1e-5 * torch.exp(-m)
+    softmax_l = exp_l / sum_exp
+    softmax_r = exp_r / sum_exp
+
+    w_l = (blend_l + deghost * (softmax_l - blend_l))[..., None]
+    w_r = (blend_r + deghost * (softmax_r - blend_r))[..., None]
+    rgb = color_l[..., :3] * w_l + color_r[..., :3] * w_r
+    rgb_u8 = torch.clamp(torch.round(rgb), 0, 255).to(torch.uint8)
+    out = torch.cat([rgb_u8, torch.full(rgb_u8.shape[:-1] + (1,), 255,
+                                        dtype=torch.uint8,
+                                        device=rgb_u8.device)], dim=-1)
+    transparent = (color_l[..., 3] == 0) | (color_r[..., 3] == 0)
+    return torch.where(transparent[..., None],
+                       torch.zeros(4, dtype=torch.uint8, device=out.device),
+                       out)
+
+
+def novel_view_plain(image_l: torch.Tensor, image_r: torch.Tensor,
+                     flow_l_to_r: torch.Tensor, flow_r_to_l: torch.Tensor,
+                     blend: torch.Tensor, window: tuple | None = None
+                     ) -> torch.Tensor:
+    """The novel-view kernel's contract: the window's columns of both
+    canvases (``models.stitcher.window_cols``), ``combine_views_plain`` on
+    them with the window's flows and blend, and the merged window at its
+    columns of a zero canvas (``place_cols``).  No window: the whole
+    canvas, unrolled."""
+    if window is None:
+        return combine_views_plain(image_l, image_r, flow_l_to_r,
+                                   flow_r_to_l, blend)
+    from panorama_opticalflow_tpu_torch.models.stitcher import (place_cols,
+                                                              window_cols)
+
+    roll, width = window
+    merged = combine_views_plain(window_cols(image_l, roll, width, dim=-2),
+                                 window_cols(image_r, roll, width, dim=-2),
+                                 flow_l_to_r, flow_r_to_l, blend)
+    return place_cols(merged, roll, image_l.shape[-2], dim=-2)
+
+
+def _rows_of(t: torch.Tensor, pixel: int) -> torch.Tensor:
+    """``t`` where its pixels lie dense along a row (``pixel`` floats
+    each, 8-byte aligned for a flow); else a contiguous copy.  A window
+    or a wrap-cropped flow is a view with a longer row stride."""
+    if (t.stride(-1) == 1 and (pixel == 1 or t.stride(-2) == pixel)
+            and all(s % pixel == 0 for s in t.stride()[:-1])
+            and t.data_ptr() % (4 * pixel) == 0):
+        return t
+    return t.contiguous()
+
+
+def novel_view(image_l: torch.Tensor, image_r: torch.Tensor,
+               flow_l_to_r: torch.Tensor, flow_r_to_l: torch.Tensor,
+               blend: torch.Tensor, window: tuple | None = None
+               ) -> torch.Tensor:
+    """The novel-view stage of a pair, or of a stack of N pairs: canvases
+    (..., H, W, 4) uint8, the window's flows (..., H, width, 2) and blend
+    (..., H, width) float32, the window (roll, width) with the roll an int
+    or a 0-d int64 tensor on the canvases' device (read there, never on the
+    host); no window is roll 0 and width W.  Returns the (..., H, W, 4)
+    uint8 canvas of the merged view, zero outside the window, bit for bit
+    ``novel_view_plain``'s on the same device.  The window's shape picks
+    the sampler (tiled at TILED_SAMPLER_MIN_H x _W and above).  One launch
+    a call."""
+    if image_l.dim() not in (3, 4):
+        raise ValueError("novel_view: canvases must be (H, W, 4) or "
+                         "(N, H, W, 4)")
+    lead, (h, w) = image_l.shape[:-3], image_l.shape[-3:-1]
+    roll, width = (0, w) if window is None else window
+    if not 1 <= width <= w:
+        raise ValueError(f"novel_view: window width {width} outside "
+                         f"[1, {w}]")
+    shapes = {"image_l": (*lead, h, w, 4), "image_r": (*lead, h, w, 4),
+              "flow_l_to_r": (*lead, h, width, 2),
+              "flow_r_to_l": (*lead, h, width, 2),
+              "blend": (*lead, h, width)}
+    args = {"image_l": image_l, "image_r": image_r,
+            "flow_l_to_r": flow_l_to_r, "flow_r_to_l": flow_r_to_l,
+            "blend": blend}
+    for key, t in args.items():
+        want = torch.uint8 if key.startswith("image") else torch.float32
+        if not isinstance(t, torch.Tensor) or t.dtype != want:
+            raise TypeError(f"novel_view: {key} must be a {want} tensor")
+        if tuple(t.shape) != shapes[key]:
+            raise ValueError(f"novel_view: {key} has shape "
+                             f"{tuple(t.shape)}, expected {shapes[key]}")
+        if t.device != image_l.device:
+            raise ValueError(f"novel_view: {key} is on {t.device}, not "
+                             f"{image_l.device}")
+    if isinstance(roll, torch.Tensor) and (
+            roll.dtype != torch.int64 or roll.numel() != 1
+            or roll.device != image_l.device):
+        raise ValueError(f"novel_view: a tensor roll must be one int64 on "
+                         f"{image_l.device}")
+    if image_l.device.type == "cpu":
+        return novel_view_plain(image_l, image_r, flow_l_to_r, flow_r_to_l,
+                                blend, window)
+    if image_l.device.type != "cuda":
+        raise ValueError(f"novel_view: unsupported device {image_l.device}")
+    flat = (-1, h, w, 4)
+    img_l, img_r = (t.reshape(flat).contiguous() for t in (image_l, image_r))
+    flr, frl = (_rows_of(f.reshape(-1, h, width, 2), 2)
+                for f in (flow_l_to_r, flow_r_to_l))
+    if flr.stride() != frl.stride():
+        flr, frl = flr.contiguous(), frl.contiguous()
+    bl = _rows_of(blend.reshape(-1, h, width), 1)
+    nb = img_l.shape[0]
+    out = (torch.empty if width == w else torch.zeros)(
+        (nb, h, w, 4), dtype=torch.uint8, device=image_l.device)
+    tensor_roll = isinstance(roll, torch.Tensor)
+    # a division by a Python number is, on the card, PyTorch's product with
+    # the float32 reciprocal
+    _launch("novel_view", "pano_novel_view", img_l.data_ptr(),
+            img_r.data_ptr(), flr.data_ptr(), frl.data_ptr(), bl.data_ptr(),
+            out.data_ptr(), nb, h, w, width, flr.stride(0), flr.stride(1),
+            bl.stride(0), bl.stride(1),
+            roll.data_ptr() if tensor_roll else None,
+            0 if tensor_roll else int(roll),
+            float(np.float32(1.0) / np.float32(width)),
+            int(_tiled_sampler(h, width)), _stream())
+    novel_view.launches += 1
+    return out.reshape(*lead, h, w, 4)
+
+
+novel_view.launches = 0
+
 KERNELS = (warp_tiled, relax_phase, median5_diffuse,
            relax_phase_unfused, median5, exact_level, small_relax_phase,
-           small_relax_phase_unfused, small_median5_diffuse)
+           small_relax_phase_unfused, small_median5_diffuse, novel_view)
 
 
 def reset_launch_counts() -> None:

@@ -301,7 +301,14 @@ def test_wrappers_take_plain_version_on_cpu(rng):
              lv[4].abs(), torch.zeros(2, 20, 23, 2), params)
     assert torch.equal(tk.exact_level(*level, 1, 2),
                        tk.exact_level_plain(*level, 1, 2))
-    assert len(tk.KERNELS) == 9
+    il, ir = (T(rng.integers(0, 256, (30, 60, 4), dtype=np.uint8))
+              for _ in range(2))
+    fl, fr = (T(rng.standard_normal((30, 40, 2)).astype(np.float32) * 3)
+              for _ in range(2))
+    bl = T(rng.random((30, 40)).astype(np.float32))
+    assert torch.equal(tk.novel_view(il, ir, fl, fr, bl, (35, 40)),
+                       tk.novel_view_plain(il, ir, fl, fr, bl, (35, 40)))
+    assert len(tk.KERNELS) == 10
     assert all(k.launches == 0 for k in tk.KERNELS)
 
 

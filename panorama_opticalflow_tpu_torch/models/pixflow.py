@@ -11,10 +11,12 @@ direction as alone; ``compute_optical_flow_pair`` is its N = 1 case and
 
 The pyramid runs unrolled (the reference's rung scan only shrinks XLA
 compiles, and its border padding differs); the port matches the
-reference with ``scan_coarse_levels=False``.  The coarsest level (and the
-init-floor twin of the ``_fast`` presets) starts from zero flow, or from
-the brute-force search init of the ``pixflow_search_*`` presets, and
-runs the exact gather path (``ops.relax_exact``; one CUDA kernel,
+reference with ``scan_coarse_levels=False``.  ``coarsest_start`` gives
+the flow the coarsest level refines: the init-floor twin's of the
+``_fast`` presets, else the brute-force search init of the
+``pixflow_search_*`` presets (``search_init``, all candidates of all
+directions in one pass), else zero flow.  The coarsest level (and the
+twin) runs the exact gather path (``ops.relax_exact``; one CUDA kernel,
 ``kernels.exact_level``, at the sizes a block holds); every other level
 the fast path of ``_level_core``: with ``use_pallas`` three kernel
 launches a single-phase level, below ``pallas_min_pixels`` bit for bit
@@ -23,12 +25,15 @@ the plain branch, which ``use_pallas=False`` runs at every size.
 The spans (``utils.trace``): the stages ``pair.flow_prep`` (downscale,
 pre-blur and pyramid; then, a second stretch, the final upsample),
 ``pair.flow_floor_twin`` (the ``_fast`` presets' init-floor twin: its
-resizes, init, exact solve and upsample to the coarsest level),
+resizes, exact solve and upsample to the coarsest level),
+``pair.flow_search_init`` (the search init, at the coarsest level or,
+splitting the twin's stage in two, at the twin's),
 ``pair.flow_coarsest``, and the other levels in one stage a run:
 ``pair.flow_plain_levels`` below ``pallas_min_pixels``,
 ``pair.flow_kernel_levels`` at or above it; within them a host range
 ``flow.level`` a level (and a twin size), its size in the range's
-arguments.
+arguments.  The tracer's counter ``search_maps`` counts the SAD maps the
+search init scores, 19 a direction at the presets' search distance.
 """
 
 from __future__ import annotations
@@ -213,26 +218,17 @@ def _level_core(i0x: torch.Tensor, i0y: torch.Tensor, i1g: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _shift_clamped(arr: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
-    """out[y, x] = arr[clamp(y + dy), clamp(x + dx)] (replicate border)."""
-    h, w = arr.shape[:2]
-    r = max(abs(dy), abs(dx))
-    if r == 0:
-        return arr
-    p = im.pad_axis(im.pad_axis(arr, 0, r, r, "edge"), 1, r, r, "edge")
-    return p[r + dy:r + dy + h, r + dx:r + dx + w]
-
-
 def _box5_zero(arr: torch.Tensor) -> torch.Tensor:
-    """5x5 window sum, zero outside the image (patch SAD sums skip the
-    out-of-bounds i0 patch rows/cols, CPU/PixFlow.hpp:163-180)."""
-    h, w = arr.shape[:2]
-    p = im.pad_axis(im.pad_axis(arr, 0, 2, 2, "constant"), 1, 2, 2,
+    """5x5 window sum over the last two axes, zero outside the image
+    (patch SAD sums skip the out-of-bounds i0 patch rows/cols,
+    CPU/PixFlow.hpp:163-180): 25 adds, dy outer, dx inner."""
+    h, w = arr.shape[-2:]
+    p = im.pad_axis(im.pad_axis(arr, -2, 2, 2, "constant"), -1, 2, 2,
                     "constant")
     out = torch.zeros_like(arr)
     for dy in range(5):
         for dx in range(5):
-            out = out + p[dy:dy + h, dx:dx + w]
+            out = out + p[..., dy:dy + h, dx:dx + w]
     return out
 
 
@@ -253,64 +249,102 @@ def search_box_offsets(hint: str, dist: int) -> list[tuple[int, int]]:
     return [(dy, dx) for dy in ys for dx in xs]
 
 
+def _searches(hints: tuple[str, str], params: FlowParams) -> bool:
+    """Whether the coarsest level starts from the search init."""
+    return params.max_percentage > 0 and any(h != "unknown" for h in hints)
+
+
 @programs.device_constant
-def _search_candidates(hint: str, dist: int, device: str) -> torch.Tensor:
-    """(0, 0) and the search box offsets as (N, (dy, dx)) float32 on
-    ``device``, made once: a copy from host memory waits for the card's
-    stream, and a captured program cannot hold one."""
-    return torch.tensor([(0, 0)] + search_box_offsets(hint, dist),
-                        dtype=torch.float32, device=device)
+def _search_candidates(hints: tuple[str, str], dist: int, nb: int, h: int,
+                       w: int, device: str) -> tuple:
+    """The search's tables for (nb, h, w) planes whose entry b searches
+    with hints[b % 2], made once on ``device`` (a copy from host memory
+    waits for the card's stream, and a captured program cannot hold one).
+    Candidate k is the zero offset, then the box's offsets in scan order
+    (an "unknown" entry: the zero offset throughout, so zero flow).
+    Returns
+
+    * ``index`` (K, nb, h, w) int64: the flat position in the (nb, h, w)
+      planes of the pixel candidate k's replicate-shifted plane reads;
+    * ``valid`` (K, nb, h, w): candidate k's centre is inside the plane
+      (CPU/PixFlow.hpp:253);
+    * ``scale`` (K, nb, 1, 1) float32: 1 + length / dist, evaluated in
+      float32 as the reference does;
+    * ``flows`` (nb * K, 2) float32: row b * K + k the (dx, dy) of
+      candidate k of entry b, and ``base`` (nb, 1, 1) int64: b * K."""
+    box = len(search_box_offsets("right", dist))
+    offsets = np.array([
+        [(0, 0)] + (search_box_offsets(hints[b % 2], dist)
+                    if hints[b % 2] != "unknown" else [(0, 0)] * box)
+        for b in range(nb)])                              # (nb, K, (dy, dx))
+    k = offsets.shape[1]
+    dy = offsets[..., 0].T[:, :, None, None]
+    dx = offsets[..., 1].T[:, :, None, None]
+    ys = np.arange(h)[:, None] + dy
+    xs = np.arange(w)[None, :] + dx
+    valid = (ys >= 0) & (ys < h) & (xs >= 0) & (xs < w)
+    index = (np.arange(nb)[:, None, None] * (h * w)
+             + np.clip(ys, 0, h - 1) * w + np.clip(xs, 0, w - 1))
+    scale = np.array([[np.float32(1.0)
+                       + np.float32((x * x + y * y) ** 0.5) / np.float32(dist)
+                       for y, x in entry] for entry in offsets.tolist()],
+                     dtype=np.float32).T[:, :, None, None]
+    flows = offsets[..., ::-1].astype(np.float32)
+    base = np.arange(nb)[:, None, None] * k
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return (dev(index), dev(valid), dev(scale), dev(flows.reshape(-1, 2)),
+            dev(base))
 
 
-def adjust_initial_flow(i0: torch.Tensor, i1: torch.Tensor,
-                        alpha0: torch.Tensor, alpha1: torch.Tensor,
-                        hint: str, params: FlowParams) -> torch.Tensor:
+def search_init(i0: torch.Tensor, i1: torch.Tensor, alpha0: torch.Tensor,
+                alpha1: torch.Tensor, hints: tuple[str, str],
+                params: FlowParams) -> torch.Tensor:
     """Brute-force init at the coarsest level (CPU/PixFlow.hpp:226-270) on
-    (H, W) planes: every search offset is one shifted 5x5 box-summed SAD
-    map; per-pixel argmin with a 0.8x bias toward zero flow.  Returns the
-    (H, W, 2) integer-valued flow, zero where alpha0 is low."""
-    ratio = torch.sum(alpha0 * alpha1 * i0) / torch.sum(alpha0 * alpha1 * i1)
-    i1eq = i1 * ratio
-    dist = params.search_distance
-    offsets = search_box_offsets(hint, dist)
-    h, w = i0.shape
-    yy = torch.arange(h, device=i0.device)[:, None]
-    xx = torch.arange(w, device=i0.device)[None, :]
+    (B, H, W) planes: entry b searches the flow from ``i0[b]`` to
+    ``i1[b]`` with the hint hints[b % 2] ("unknown": zero flow).  Every
+    candidate offset (the zero offset, then the search box's) is one
+    replicate-shifted, 5x5 box-summed SAD map of the exposure-equalised
+    ``i1`` over the box-summed alpha overlap, scaled by 1 + length /
+    distance; per pixel the argmin with a 0.8x bias toward zero flow.
 
-    def patch_error(dy: int, dx: int) -> torch.Tensor:
-        sad = _box5_zero(torch.abs(i0 - _shift_clamped(i1eq, dy, dx)))
-        alpha = _box5_zero(alpha0 * _shift_clamped(alpha1, dy, dx))
-        # 1 + length / dist in float32, as the reference evaluates it
-        scale = np.float32(1.0) + np.float32((dx * dx + dy * dy) ** 0.5)             / np.float32(dist)
-        e = sad / alpha * float(scale)
-        # candidate centre must be in bounds (CPU/PixFlow.hpp:253)
-        valid = ((yy + dy >= 0) & (yy + dy < h)
-                 & (xx + dx >= 0) & (xx + dx < w))
-        return torch.where(valid, e, float("inf"))
-
-    err00 = patch_error(0, 0)
+    All candidates of all entries run in one pass, and each entry gets the
+    bits it gets searched alone: every op is elementwise, a gather or the
+    argmin over the candidates, but the exposure ratio's two sums, which
+    are taken one plane at a time, each of a plane of its own (a batched
+    reduction may order its adds otherwise).  Returns the (B, H, W, 2)
+    integer-valued flow, zero where alpha0 is low."""
+    nb, h, w = i0.shape
+    overlap = alpha0 * alpha1
+    num = torch.stack([torch.sum(overlap[b] * i0[b]) for b in range(nb)])
+    den = torch.stack([torch.sum(overlap[b] * i1[b]) for b in range(nb)])
+    i1eq = i1 * (num / den)[:, None, None]
+    index, valid, scale, flows, base = _search_candidates(
+        tuple(hints), params.search_distance, nb, h, w, str(i0.device))
+    shifted = torch.stack([i1eq, alpha1]).flatten(1)[:, index]
+    box = _box5_zero(torch.stack([torch.abs(i0 - shifted[0]),
+                                  alpha0 * shifted[1]]))
+    err = torch.where(valid, box[0] / box[1] * scale, float("inf"))
     # NaN err00 (zero alpha overlap) keeps zero flow in the reference's
     # strict comparisons: -inf makes the bias entry win
-    bias = torch.where(torch.isnan(err00), float("-inf"), 0.8 * err00)
-    errs = [bias] + [torch.nan_to_num(patch_error(dy, dx), nan=float("inf"))
-                     for dy, dx in offsets]
+    bias = torch.where(torch.isnan(err[0]), float("-inf"), 0.8 * err[0])
+    errs = torch.cat([bias[None],
+                      torch.nan_to_num(err[1:], nan=float("inf"))])
     # first occurrence wins ties == the reference's strictly-less update
-    choice = torch.argmin(torch.stack(errs), dim=0)
-    cand = _search_candidates(hint, dist, str(i0.device))  # (N, (dy, dx))
-    flow = cand[choice].flip(-1)                      # (H, W, (dx, dy))
+    flow = flows[torch.argmin(errs, dim=0) + base]    # (B, H, W, (dx, dy))
+    trace.count_search_maps(index.shape[0] * sum(
+        hints[b % 2] != "unknown" for b in range(nb)))
     update = alpha0 > params.update_alpha_threshold
     return torch.where(update[..., None], flow, torch.zeros_like(flow))
 
 
-def _initial_flow(i0: torch.Tensor, i1: torch.Tensor, alpha0: torch.Tensor,
-                  alpha1: torch.Tensor, hint: str,
-                  params: FlowParams) -> torch.Tensor:
-    """The coarsest level's (H, W, 2) start: the search init when the
-    preset searches and the direction is known, else zero flow."""
-    if params.max_percentage > 0 and hint != "unknown":
-        return adjust_initial_flow(i0, i1, alpha0, alpha1, hint, params)
-    return torch.zeros(i0.shape + (2,), dtype=torch.float32,
-                       device=i0.device)
+@programs.device_constant
+def _zero_flow(shape: tuple, device: str) -> torch.Tensor:
+    """Zero flow of ``shape``, made once: a level reads the flow it
+    refines and never writes it."""
+    return torch.zeros(shape, dtype=torch.float32, device=device)
 
 
 def _gradients(imgs: torch.Tensor,
@@ -327,29 +361,46 @@ def _partner(x: torch.Tensor) -> torch.Tensor:
 
 
 def patch_match_level_batched(imgs: torch.Tensor, alphas: torch.Tensor,
-                              flow: torch.Tensor | None,
-                              hints: tuple[str, str],
-                              params: FlowParams) -> torch.Tensor:
+                              flow: torch.Tensor, params: FlowParams,
+                              coarsest: bool = False) -> torch.Tensor:
     """One pyramid level for both directions of N pairs:
     ``imgs``/``alphas`` (2N, H, W), entry 2n + d the image d of pair n;
-    direction 2n + d solves the flow from that image to its partner with
-    the hint hints[d].  ``flow`` is (2N, H, W, 2), or None at the coarsest
-    level, which then starts from the initial flow (at a raised floor the
-    caller passes the init-floor twin's flow instead:
-    ``_twin_flow_batched``)."""
-    nb = imgs.shape[0]
+    direction 2n + d refines ``flow`` (2N, H, W, 2) from that image to its
+    partner.  The ``coarsest`` level refines ``coarsest_start``'s flow on
+    the exact path, but above a raised pyramid floor, where that is the
+    init-floor twin's flow, it refines it as any other level."""
     gx, gy = _gradients(imgs, params)
     i1g = torch.stack([_partner(gx), _partner(gy)], dim=-1)
-    a0, a1 = alphas, _partner(alphas)
+    exact = coarsest and not _sub_floor_sizes(*imgs.shape[1:], params)
+    return _level_core(gx, gy, i1g, alphas, _partner(alphas), flow, params,
+                       exact)
 
-    coarsest = flow is None
-    if coarsest:
-        i1 = _partner(imgs)
-        flow = torch.stack([
-            _initial_flow(imgs[b], i1[b], a0[b], a1[b], hints[b % 2], params)
-            for b in range(nb)])
 
-    return _level_core(gx, gy, i1g, a0, a1, flow, params, coarsest)
+def _search_stage(imgs: torch.Tensor, alphas: torch.Tensor,
+                  hints: tuple[str, str], params: FlowParams) -> torch.Tensor:
+    """The search init of both directions of N pairs, the stage
+    ``pair.flow_search_init``."""
+    with trace.span("pair.flow_search_init", stage=True):
+        return search_init(imgs, _partner(imgs), alphas, _partner(alphas),
+                           hints, params)
+
+
+def coarsest_start(imgs: torch.Tensor, alphas: torch.Tensor,
+                   hints: tuple[str, str], params: FlowParams
+                   ) -> torch.Tensor:
+    """The (2N, H, W, 2) flow the coarsest level of (2N, H, W) planes
+    (entry 2n + d the image d of pair n, direction d with the hint
+    hints[d]) refines: above a raised pyramid floor (the _fast presets)
+    the init-floor twin's flow, else the search init of the
+    ``pixflow_search_*`` presets, else zero flow.  The twin and the
+    search are stages of their own (``pair.flow_floor_twin``,
+    ``pair.flow_search_init``); zero flow is a constant and runs
+    nothing."""
+    if _sub_floor_sizes(*imgs.shape[1:], params):
+        return _twin_flow_batched(imgs, alphas, hints, params)
+    if _searches(hints, params):
+        return _search_stage(imgs, alphas, hints, params)
+    return _zero_flow(imgs.shape + (2,), str(imgs.device))
 
 
 def _twin_flow_batched(imgs: torch.Tensor, alphas: torch.Tensor,
@@ -357,29 +408,41 @@ def _twin_flow_batched(imgs: torch.Tensor, alphas: torch.Tensor,
                        params: FlowParams) -> torch.Tensor:
     """Raised pyramid floor (_fast presets): the init-floor twin of the
     coarsest level for both directions of N pairs, (2N, H, W) planes as
-    ``patch_match_level_batched`` takes them.  The images and alphas are
-    resized progressively down to the sizes below the floor, the init +
-    exact relaxation runs there, and its (2N, h, w, 2) flow is upsampled
-    to (H, W) as the coarsest level's incoming flow.  A host range
-    ``flow.level`` a size; the last one holds the solve and the
-    upsample."""
+    ``coarsest_start`` takes them.  The images and alphas are resized
+    progressively down to the sizes below the floor, the start (zero or
+    the search init) and the exact relaxation run there, and the (2N, h,
+    w, 2) flow is upsampled to (H, W) as the coarsest level's incoming
+    flow.  The stage ``pair.flow_floor_twin``, split in two stretches by
+    the search init's stage where the preset searches; a host range
+    ``flow.level`` a size, the last one in each stretch."""
     nb, hh, ww = imgs.shape
-    planes = torch.cat([imgs, alphas])
     *down, (th, tw) = _sub_floor_sizes(hh, ww, params)
-    for s in down:
-        with _level_span(s):
-            planes = im.resize_planes(planes, s, "linear")
-    with _level_span((th, tw)):
-        planes = im.resize_planes(planes, (th, tw), "linear")
-        f_t = patch_match_level_batched(
-            planes[:nb], planes[nb:], None, hints,
-            dataclasses.replace(params, pyr_stop_size=0))
+    twin = dataclasses.replace(params, pyr_stop_size=0)
+
+    def solve(planes, flow):
+        f_t = patch_match_level_batched(planes[:nb], planes[nb:], flow, twin,
+                                        coarsest=True)
         up = _from_planes(im.resize_planes(_as_planes(f_t), (hh, ww),
                                            "cubic"), nb)
         # two Python floats: the products a two-element float32 tensor
         # gives
         return torch.stack([up[..., 0] * (ww / tw), up[..., 1] * (hh / th)],
                            -1)
+
+    with trace.span("pair.flow_floor_twin", stage=True):
+        planes = torch.cat([imgs, alphas])
+        for s in down:
+            with _level_span(s):
+                planes = im.resize_planes(planes, s, "linear")
+        with _level_span((th, tw)):
+            planes = im.resize_planes(planes, (th, tw), "linear")
+            if not _searches(hints, params):
+                return solve(planes, _zero_flow((nb, th, tw, 2),
+                                                str(imgs.device)))
+    flow = _search_stage(planes[:nb], planes[nb:], hints, twin)
+    with trace.span("pair.flow_floor_twin", stage=True), \
+            _level_span((th, tw)):
+        return solve(planes, flow)
 
 
 def _preprocess(rgba: torch.Tensor, params: FlowParams,
@@ -428,14 +491,11 @@ def compute_optical_flow_pairs(rgba0: torch.Tensor, rgba1: torch.Tensor,
     hints = (hint01, hint10)
 
     top = len(sizes) - 1
-    flow = None
-    if _sub_floor_sizes(*sizes[top], params):
-        with trace.span("pair.flow_floor_twin", stage=True):
-            flow = _twin_flow_batched(p_g[top], p_a[top], hints, params)
+    flow = coarsest_start(p_g[top], p_a[top], hints, params)
     with trace.span("pair.flow_coarsest", stage=True), \
             _level_span(sizes[top]):
-        flow = patch_match_level_batched(p_g[top], p_a[top], flow, hints,
-                                         params)
+        flow = patch_match_level_batched(p_g[top], p_a[top], flow, params,
+                                         coarsest=True)
     for stage, levels in _level_runs(sizes, params):
         with trace.span(stage, stage=True):
             for level in levels:
@@ -444,7 +504,7 @@ def compute_optical_flow_pairs(rgba0: torch.Tensor, rgba1: torch.Tensor,
                         _as_planes(flow), sizes[level], "cubic"), 2 * n)
                     flow = flow * (1.0 / params.pyr_scale_factor)
                     flow = patch_match_level_batched(
-                        p_g[level], p_a[level], flow, hints, params)
+                        p_g[level], p_a[level], flow, params)
 
     with trace.span("pair.flow_prep", stage=True):
         flow = _from_planes(_final_flow(_as_planes(flow), (h, w), params),

@@ -20,8 +20,8 @@ process all n tiles form one stack (T = n) on one device; under
 * pyramid levels too small to tile are computed whole from the gathered
   rows.  A level's solver is the port's ``pixflow.patch_match_level_batched``
   on the halo-extended tile stack, with the same CUDA kernels as the
-  untiled path; above a raised pyramid floor the coarsest level starts
-  from its init-floor twin (``pixflow._twin_flow_batched``), as in
+  untiled path; the coarsest level starts from ``pixflow.coarsest_start``
+  (the init-floor twin's flow, the search init or zero flow), as in
   ``pixflow.compute_optical_flow_pairs``.
 
 Two documented deviations from the untiled program come along from the
@@ -460,12 +460,11 @@ def tiled_compute_optical_flow_pair(
     halo = tc.level_halo
 
     def solve(imgs, alphas, fb):
-        if fb is None and pixflow._sub_floor_sizes(*imgs.shape[1:], params):
-            # raised pyramid floor (_fast presets): the coarsest level
-            # refines off its init-floor twin's flow
-            fb = pixflow._twin_flow_batched(imgs, alphas, hints, params)
-        return pixflow.patch_match_level_batched(imgs, alphas, fb, hints,
-                                                 params)
+        coarsest = fb is None
+        if coarsest:
+            fb = pixflow.coarsest_start(imgs, alphas, hints, params)
+        return pixflow.patch_match_level_batched(imgs, alphas, fb, params,
+                                                 coarsest)
 
     flow_c = None
     for level in range(len(sizes) - 1, -1, -1):

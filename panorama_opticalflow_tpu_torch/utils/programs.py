@@ -47,11 +47,12 @@ Python does not run on a replay, so the kernel wrappers' launch counters
 counted while it was captured, takes that back (nothing ran), and adds it
 on every replay: the counters count the launches that ran on the card,
 each call's once.  For the same reason a program keeps the boundaries of
-its body's stage spans (``utils.trace``), captured as event nodes, and
-hands them to the tracer after each replay.  A key's eager call, a capture
-(with the graph's instantiation) and a replay (copy-in, replay, copy-out)
-are the spans ``program.eager``, ``program.capture`` and
-``program.replay``.
+its body's stage spans (``utils.trace``), captured as event nodes, with
+what the tracer's counters counted while it was captured, and hands them
+to the tracer after each replay, which counts them again.  A key's eager
+call, a capture (with the graph's instantiation) and a replay (copy-in,
+replay, copy-out) are the spans ``program.eager``, ``program.capture``
+and ``program.replay``.
 """
 
 from __future__ import annotations

@@ -23,7 +23,10 @@ under each stage's range.
 
 The counter ``Recording.host_syncs`` counts, while a recording is open,
 the points at which the port's host waits for the device
-(``host_sync()``).
+(``host_sync()``).  The counter ``Recording.search_maps`` counts the SAD
+maps the flow's search init scores (``count_search_maps()``); Python
+does not run on a replay, so what a capture counts is kept with its
+boundaries (``Captured``), and each replay counts it again.
 """
 
 from __future__ import annotations
@@ -70,6 +73,7 @@ class Recording:
     spans: list = dataclasses.field(default_factory=list)
     replays: list = dataclasses.field(default_factory=list)
     host_syncs: int = 0
+    search_maps: int = 0
     calls: int = 0
     # indices of the open spans, outermost first
     open: list = dataclasses.field(default_factory=list)
@@ -98,11 +102,19 @@ class Recording:
         return {name: ms / len(self.replays) for name, ms in total.items()}
 
 
+class Captured(list):
+    """What a program's capture recorded: [name, enter event, exit event]
+    a stage span, in capture order, and the counts made while it ran."""
+
+    def __init__(self):
+        super().__init__()
+        self.search_maps = 0
+
+
 class _Capture:
     def __init__(self, mark):
         self.mark = mark
-        # [name, enter event, exit event] a stage span, in capture order
-        self.boundaries: list = []
+        self.boundaries = Captured()
 
 
 class _Span:
@@ -177,7 +189,8 @@ def _event():
 def capturing(mark=_event):
     """While a program's body is captured: the stage spans' boundaries,
     each made by ``mark()`` (a timing event recorded on the current
-    stream), in capture order; yields their list."""
+    stream), in capture order, and the counts; yields their
+    ``Captured``."""
     global _capture
     outer, _capture = _capture, _Capture(mark)
     try:
@@ -186,11 +199,15 @@ def capturing(mark=_event):
         _capture = outer
 
 
-def replayed(program: str, boundaries: list) -> None:
+def replayed(program: str, boundaries: Captured) -> None:
     """After a replay of ``program``, whose capture kept ``boundaries``:
-    while recording, its times are read once it has completed."""
+    while recording, the capture's counts are counted again and its times
+    are read once it has completed."""
     rec = _recording
-    if rec is not None and boundaries:
+    if rec is None:
+        return
+    rec.search_maps += boundaries.search_maps
+    if boundaries:
         call = rec.spans[rec.open[0]].call if rec.open else rec.calls
         rec.pending.append((program, call, boundaries))
 
@@ -206,6 +223,15 @@ def host_sync() -> None:
     """Count a point where the host waits for the device."""
     if _recording is not None:
         _recording.host_syncs += 1
+
+
+def count_search_maps(n: int) -> None:
+    """Count ``n`` SAD maps scored by the search init: into the capture
+    open, whose every replay counts them, else into the recording."""
+    if _capture is not None:
+        _capture.boundaries.search_maps += n
+    elif _recording is not None:
+        _recording.search_maps += n
 
 
 def _read(program: str, call: int, boundaries: list) -> Replay:

@@ -164,3 +164,52 @@ def test_the_floor_twin_reader_reads_its_stage_or_none():
     assert read(run) is None
     run.port_spans = None
     assert read(run) is None
+
+
+def test_the_search_init_reader_reads_its_stage_or_none():
+    """``stage_ms.flow_search_init`` reads the search's stage, summed over
+    its stretches (a twin split by it, or a chain's pairs), and None where
+    no replay has it (a port that searches inside ``pair.flow_coarsest``,
+    or a preset without the search)."""
+    read = harness.load_reader("stage_ms.flow_search_init")
+    run = harness.Run(None, 0.0, None, {}, {}, 0, None)
+    rec = trace.Recording(replays=[trace.Replay("_chain_body", 0, [
+        ("pair.flow_prep", 0.0, 1.0), ("pair.flow_search_init", 1.0, 1.25),
+        ("pair.flow_coarsest", 1.25, 2.0),
+        ("pair.flow_search_init", 2.0, 2.5)])])
+    run.port_spans = spans.reduce([], rec, trace.Recording(), panoramas=1)
+    assert read(run) == pytest.approx(0.75)
+    rec = trace.Recording(replays=[trace.Replay("_chain_body", 0, [
+        ("pair.flow_prep", 0.0, 1.0), ("pair.flow_coarsest", 1.0, 2.0)])])
+    run.port_spans = spans.reduce([], rec, trace.Recording(), panoramas=1)
+    assert read(run) is None
+    run.port_spans = None
+    assert read(run) is None
+
+
+@pytest.mark.parametrize("cell,maps", [("six_search20.repeat", 190.0),
+                                       ("six_low.repeat", 0.0)])
+def test_the_search_maps_reader_counts_one_recorded_call(cell, maps,
+                                                         monkeypatch):
+    """``search_maps.stitch`` makes one call of the cell's driver on the
+    run's first input set under a recording (on the CPU at a small canvas):
+    19 maps a direction of the chain's 5 pairs under the search preset,
+    none without it, and None on a port whose tracer has no such
+    counter."""
+    import dataclasses
+
+    import torch
+
+    c = harness.load_cell(cell)
+    c.config["canvas"] = [128, 448]
+    run = harness.Run(None, 0.0, None, c.traffic, c.config, 2**40 + 5,
+                      torch.device("cpu"))
+    read = harness.load_reader("search_maps.stitch")
+    assert read(run) == maps
+
+    @dataclasses.dataclass
+    class Older:
+        host_syncs: int = 0
+
+    monkeypatch.setattr(trace, "Recording", Older)
+    assert read(run) is None

@@ -191,10 +191,11 @@ def hard_levels():
 
 
 def _port_level(imgs, alphas, flow, p):
+    imgs, alphas = to_torch(imgs, "cpu"), to_torch(alphas, "cpu")
     return to_numpy(tpf.patch_match_level_batched(
-        to_torch(imgs, "cpu"), to_torch(alphas, "cpu"),
-        None if flow is None else to_torch(flow, "cpu"),
-        ("left", "right"), p))
+        imgs, alphas,
+        tpf.coarsest_start(imgs, alphas, ("left", "right"), p)
+        if flow is None else to_torch(flow, "cpu"), p, flow is None))
 
 
 def _check_refined(got, ref, shape):

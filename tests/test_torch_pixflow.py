@@ -109,10 +109,11 @@ def _check_levels(levels, expect_coarsest: int):
     for imgs, alphas, flow, p, ref in levels:
         if flow is None and tpf._sub_floor_sizes(*imgs.shape[1:], p):
             continue    # the _fast init-floor wrapper: its twin is recorded
+        imgs_t, alphas_t = to_torch(imgs, "cpu"), to_torch(alphas, "cpu")
         got = to_numpy(tpf.patch_match_level_batched(
-            to_torch(imgs, "cpu"), to_torch(alphas, "cpu"),
-            None if flow is None else to_torch(flow, "cpu"),
-            ("left", "right"), p))
+            imgs_t, alphas_t,
+            tpf.coarsest_start(imgs_t, alphas_t, ("left", "right"), p)
+            if flow is None else to_torch(flow, "cpu"), p, flow is None))
         d = _epe(got, ref)
         if flow is None:
             n_coarsest += 1
@@ -235,8 +236,8 @@ def test_adjust_initial_flow_matches_jax(rng, hint):
     assert tp.search_distance == jp.search_distance == 5
     ref = np.asarray(jpf.adjust_initial_flow(*map(jnp.asarray, args), hint,
                                              jp))
-    got = to_numpy(tpf.adjust_initial_flow(
-        *(to_torch(a, "cpu") for a in args), hint, tp))
+    got = to_numpy(tpf.search_init(
+        *(to_torch(a, "cpu")[None] for a in args), (hint, hint), tp)[0])
     assert np.abs(ref).max() >= 3            # the search moved pixels
     assert (got == ref).all(axis=-1).mean() >= 0.995
 

@@ -1,9 +1,11 @@
 """The port's tracer (``utils/trace.py``) on the CPU.
 
 * The span tree of a stitch: names, parents, order and call numbers for
-  the 6-photo chain (``pixflow_low``, and ``pixflow_low_fast`` with its
-  init-floor twin as a stage) and the full-canvas pass of N pairs, the
-  flow's levels grouped by ``pallas_min_pixels``; and the leaf tiling: every
+  the 6-photo chain (``pixflow_low``, ``pixflow_low_fast`` with its
+  init-floor twin as a stage, and both under the search init, a stage of
+  its own: ``pixflow_search_20`` and ``_fast``) and the full-canvas pass
+  of N pairs, the flow's levels grouped by ``pallas_min_pixels``; and the
+  leaf tiling: every
   operation of a body (views aside, which launch nothing) runs inside
   one of its ``pair.*`` stage spans, none of which holds another.
 * With no recording open a body dispatches exactly the ops it dispatches
@@ -74,10 +76,18 @@ def _flow_spans(h, w, params):
     out = [("pair.flow_prep", None)]
     twin = pixflow._sub_floor_sizes(*sizes[top], params)
     assert bool(twin) == bool(params.pyr_stop_size)
+    search = [("pair.flow_search_init", None)] if params.max_percentage \
+        else []
     if twin:
-        # the _fast presets' init-floor twin, a stage of its own
+        # the _fast presets' init-floor twin, a stage of its own; the
+        # search init at its last size splits it in two stretches
         out.append(("pair.flow_floor_twin", None))
         out += [("flow.level", "%dx%d" % s) for s in twin]
+        if search:
+            out += search + [("pair.flow_floor_twin", None),
+                             ("flow.level", "%dx%d" % twin[-1])]
+    else:
+        out += search
     out += [("pair.flow_coarsest", None),
             ("flow.level", "%dx%d" % sizes[top])]
     pmp = params.pallas_min_pixels
@@ -95,9 +105,10 @@ def _case(kind, pairs=5):
     """(root span, entry, body, tensors, static, the spans below the
     root: (name, args)); a chain of ``pairs`` pairs."""
     if kind.startswith("chain"):
-        hw, pmp, alg = ((FAST_HW, FAST_PMP, "pixflow_low_fast")
-                        if kind == "chain fast"
-                        else (CHAIN_HW, CHAIN_PMP, "pixflow_low"))
+        alg = ("pixflow_search_20" if "search" in kind
+               else "pixflow_low") + ("_fast" if "fast" in kind else "")
+        hw, pmp = ((FAST_HW, FAST_PMP) if "fast" in kind
+                   else (CHAIN_HW, CHAIN_PMP))
         cfg = _cfg(pmp, alg)
         h, w = hw
         photos, top = _six(hw)
@@ -150,7 +161,8 @@ class _Ops(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
-@pytest.mark.parametrize("kind", ["chain", "full N=2", "chain fast"])
+@pytest.mark.parametrize("kind", ["chain", "full N=2", "chain fast",
+                                  "chain search", "chain search fast"])
 def test_span_tree_and_leaf_tiling(kind):
     root, entry, body, tensors, static, expected = _case(kind)
     with trace.recording() as rec:

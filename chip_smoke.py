@@ -14,7 +14,10 @@ csrc/, then runs ten phases and prints one JSON object per phase line:
      beside them at six's largest plain level (2, 244, 218) and batch4's
      (8, 160, 395); novel_view, every byte equal to the stage's ops, at
      six's 4000x3584 window across the 9000-wide canvas's seam and on
-     four's whole 4000x9000 canvas), at the 9000x4000 headline's finest-level
+     four's whole 4000x9000 canvas; blend_distances, every bit equal to
+     the two eight-ray searches, on a canvas map at six's 4000x3584 window
+     and at four's 4000x12600 wrap-extended canvas, bytes bound at 9 a
+     pixel), at the 9000x4000 headline's finest-level
      shapes, at a middle
      level of its pyramid and at a ragged small shape, with kernel and
      plain median times (CUDA events; the kernel table keeps the finest
@@ -184,6 +187,7 @@ KERNEL_FILES = {
     "small_relax_phase_unfused": ("csrc/relax_phase.cu", None),
     "small_median5_diffuse": ("csrc/median5_diffuse.cu", None),
     "novel_view": ("csrc/novel_view.cu", None),
+    "blend_distances": ("csrc/eight_ray.cu", None),
 }
 # the 36 MP fidelity harness's schedule knobs (tools/fidelity_36mp.py)
 SCHEDULES = {"production": {},
@@ -303,6 +307,14 @@ NOVEL_CANVAS_W, NOVEL_ROLL = 9000, 8100
 # difference and deghost 10, softmax arguments 12, softmax 10, weights 6,
 # three channels' mix, rounding and clamp 18
 NOVEL_VIEW_OPS = 2 * (6 + 12) + 10 + 10 + 12 + 10 + 6 + 18
+# phase B's eight-ray shapes (1, H, W): a canvas map of six's pair window
+# and of four's 9000-wide canvas, wrap-extended as generate_blend extends
+# it (the table keeps four's times)
+B_RAYS = (("six_window", (1, 4000, 3584)), ("four", (1, 4000, 12600)))
+# the eight-ray search's operations a pixel: for each of 8 rays and 2
+# classes the carried nearest candidate, the distance, its cut and the min
+# 4; the 4 diagonal rays' product by sqrt 2 a class
+RAY_OPS = 8 * 2 * 4 + 4 * 2
 
 
 def bound(nbytes: int, ops: int) -> dict:
@@ -580,6 +592,58 @@ def novel_cases(dev, rng, b: int, h: int, width: int) -> list[dict]:
                  ops=NOVEL_VIEW_OPS * px)]
 
 
+def canvas_map(dev, rng, h: int, w: int):
+    """A (h, w) canvas map like match_images': empty, L-only, overlap,
+    R-only and empty column bands whose seams wander down the rows, empty
+    rows at the top and bottom, and 1 % of the pixels flipped to any
+    code."""
+    import numpy as np
+    import torch
+
+    y = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
+    x = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
+    seams = [f * w + 0.05 * w * torch.sin(y / (h / float(rng.uniform(2, 7)))
+                                          + float(rng.uniform(0, 6)))
+             for f in (0.1, 0.35, 0.55, 0.85)]
+    m = torch.zeros((h, w), dtype=torch.uint8, device=dev)
+    for (lo, hi), code in zip(zip(seams, seams[1:]), (100, 150, 50)):
+        m[(x >= lo) & (x < hi)] = code
+    m[: h // 20] = 0
+    m[h - h // 25:] = 0
+    flip = torch.from_numpy(rng.random((h, w)) < 0.01).to(dev)
+    m[flip] = torch.from_numpy(rng.choice(
+        np.array([0, 50, 100, 150], np.uint8), int(flip.sum()))).to(dev)
+    return m
+
+
+def ray_cases(dev, rng, b: int, h: int, w: int) -> list[dict]:
+    """blend_distances on b canvas maps as generate_blend hands them over:
+    a pair window's (w at most NOVEL_CANVAS_W), or the wrap-extended
+    NOVEL_CANVAS_W canvas's (w wider), with the stride and the cut the
+    canvas's size gives and the extension cropped.  Against its plain
+    version, the two eight-ray searches on the card, every bit equal.
+    Bytes: the map read once, two float32 distances written."""
+    import torch
+
+    import panorama_opticalflow_tpu_torch as port
+    from panorama_opticalflow_tpu_torch.ops import image as im
+    from panorama_opticalflow_tpu_torch.ops import kernels
+
+    cfg = port.StitchConfig()
+    cw = NOVEL_CANVAS_W
+    step = max(1, min(h, cw) // cfg.blend_step_div)
+    crop = 0 if w <= cw else cw // cfg.blend_extend_div
+    maps = [canvas_map(dev, rng, h, w if w <= cw else cw) for _ in range(b)]
+    codes = torch.stack([m if w <= cw else im.wrap_extend_x(m, crop, -1)
+                         for m in maps])
+    args = (codes, step, cw / 2.0, crop)
+    return [dict(name="blend_distances", dims=[b, h, w, step, crop], tol=0.0,
+                 kernel=lambda: kernels.blend_distances(*args),
+                 plain=lambda: kernels.blend_distances_plain(*args),
+                 nbytes=b * h * w + 2 * 4 * b * h * (w - 2 * crop),
+                 ops=RAY_OPS * b * h * w)]
+
+
 def as_tensor(out):
     import torch
 
@@ -600,7 +664,8 @@ def phase_b(dev) -> dict:
                B_SHAPES + (B_BATCHED,)]
               + [(tag, shape, exact_cases) for tag, shape in B_EXACT]
               + [(tag, shape, small_cases) for tag, shape in B_SMALL]
-              + [(tag, shape, novel_cases) for tag, shape in B_NOVEL])
+              + [(tag, shape, novel_cases) for tag, shape in B_NOVEL]
+              + [(tag, shape, ray_cases) for tag, shape in B_RAYS])
     for tag, (b, h, w), cases in shapes:
         for case in cases(dev, rng, b, h, w):
             name = case["name"]
@@ -610,13 +675,18 @@ def phase_b(dev) -> dict:
             got = as_tensor(case["kernel"]())
             torch.cuda.synchronize()
             ref = as_tensor(case["plain"]())
+            bit_equal = bool(torch.equal(got, ref))
             if got.dtype == torch.uint8:   # bytes: no wrap-around
                 got, ref = got.int(), ref.int()
+            else:   # the same infinity is no difference
+                same_inf = torch.isinf(got) & (got == ref)
+                got, ref = got.masked_fill(same_inf, 0), ref.masked_fill(
+                    same_inf, 0)
             diff = (got - ref).abs()
             err = diff.max().item()
             rec = {"phase": "B", "kernel": name, "shape": tag,
                    "dims": case["dims"], "max_abs_err": err,
-                   "tol": case["tol"]}
+                   "bit_equal": bit_equal, "tol": case["tol"]}
             for key in ("iters", "variant"):
                 if key in case:
                     rec[key] = case[key]
@@ -849,7 +919,9 @@ def expected_launches(windows, canvas_h: int, params, tiles=None) -> dict:
     coarsest is exact.  The exact level (the coarsest, or the _fast
     presets' init-floor twin) runs exact_level once where a block holds
     it.  Every pair runs novel_view once, a stack of pairs or of row
-    tiles once too.  ``tiles`` = (n, TileConfig) counts the row-tiled
+    tiles once too, and blend_distances once, a stack of pairs once too
+    (the row-tiled stitch searches its tiles with PyTorch ops).  ``tiles``
+    = (n, TileConfig) counts the row-tiled
     stitch: a level runs tiled or whole by parallel.tiled.tiled_levels,
     and the pallas_min_pixels gate sees the shape its kernels get, a tiled
     level's halo-extended tile (ceil(rows / n) + 2 * halo rows).  In
@@ -873,6 +945,7 @@ def expected_launches(windows, canvas_h: int, params, tiles=None) -> dict:
                  or sizes)[-1]
         n["exact_level"] += pixflow._exact_kernel_level(*exact, params)
         n["novel_view"] += 1
+        n["blend_distances"] += tiles is None
         if tiles is not None:
             nt, tc = tiles
             sizes = [(-(-h // nt) + 2 * tc.level_halo if t else h, w)
@@ -1495,7 +1568,8 @@ KERNEL_SYMBOLS = {"warp_tiled_kernel<": ("warp_tiled",),
                   "median5_diffuse_kernel<": ("median5_diffuse",),
                   "median5_kernel<": ("median5",),
                   "exact_level_kernel(": ("exact_level",),
-                  "novel_view_kernel<": ("novel_view",)}
+                  "novel_view_kernel<": ("novel_view",),
+                  "eight_ray_kernel(": ("blend_distances",)}
 
 
 def profiled_launches(rows, counted: dict, expected: dict, tag: str) -> dict:

@@ -14,8 +14,8 @@ import torch
 
 from panorama_opticalflow_tpu_torch.utils.config import StitchConfig
 from panorama_opticalflow_tpu_torch.ops import image as im
-from panorama_opticalflow_tpu_torch.ops.distance import (
-    eight_ray_min_distance, two_class_hole_search)
+from panorama_opticalflow_tpu_torch.ops import kernels
+from panorama_opticalflow_tpu_torch.ops.distance import two_class_hole_search
 
 
 class StitchContext(NamedTuple):
@@ -82,7 +82,9 @@ def generate_blend(canvas_map: torch.Tensor, cfg: StitchConfig,
     ``step // scale`` and the row test runs in decimated units, and the
     selective smoothing reduces to an identity where
     ``k_sel // scale < 2``.  Without a window ``canvas_map`` may be a
-    stack (N, H, W): the fields of N canvases, each made as alone.
+    stack (N, H, W): the fields of N canvases, each made as alone.  The
+    distances are ``ops.kernels.blend_distances``: on a card one kernel
+    launch a call, for both classes and the whole stack.
     Returns (blend, merged_dis), float32."""
     h, w = canvas_map.shape[-2:]
     step = max(1, min(h, w) // cfg.blend_step_div)
@@ -102,15 +104,11 @@ def generate_blend(canvas_map: torch.Tensor, cfg: StitchConfig,
     cs = center[..., ::s, ::s] if s > 1 else center
 
     if windowed:
-        d_l = eight_ray_min_distance(cs == 100, step_s, max_i / s)
-        d_r = eight_ray_min_distance(cs == 50, step_s, max_i / s)
+        d_l, d_r = kernels.blend_distances(cs, step_s, max_i / s)
     else:
         length_s = (w // cfg.blend_extend_div) // s
-        ext = im.wrap_extend_x(cs, length_s, -1)
-        d_l = im.crop_x(eight_ray_min_distance(ext == 100, step_s, max_i / s),
-                        length_s, -1)
-        d_r = im.crop_x(eight_ray_min_distance(ext == 50, step_s, max_i / s),
-                        length_s, -1)
+        d_l, d_r = kernels.blend_distances(im.wrap_extend_x(cs, length_s, -1),
+                                           step_s, max_i / s, crop=length_s)
     if s > 1:
         d_l = d_l * s
         d_r = d_r * s

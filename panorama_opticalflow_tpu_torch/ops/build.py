@@ -61,6 +61,8 @@ _SIGNATURES = {
     "pano_exact_level_smem": ([_i], _ll),
     "pano_novel_view": ([_p] * 6 + [_i] * 4 + [_ll] * 4 + [_p, _ll, _f, _i,
                                                           _p], _i),
+    "pano_eight_ray": ([_p] * 3 + [_i] * 3 + [_ll] * 3 + [_i] * 3
+                       + [_f, _f, _p], _i),
 }
 
 

@@ -15,6 +15,7 @@ wrapper                        replaces (reference Pallas kernel)      plain ver
 ``small_relax_phase_unfused``  none: kernel work beyond the reference  ``small_relax_phase_unfused_plain``
 ``small_median5_diffuse``      none: kernel work beyond the reference  ``small_median5_diffuse_plain``
 ``novel_view``                 none: kernel work beyond the reference  ``novel_view_plain``
+``blend_distances``            none: kernel work beyond the reference  ``blend_distances_plain``
 =============================  ======================================  =================================
 
 A wrapper checks its inputs and raises on anything the kernel does not
@@ -35,18 +36,21 @@ validity masks and reflect-101 blurs of the plain level path
 so that a small level gives the plain branch's bits on the card;
 ``exact_level`` those of the exact loop, ``ops.relax_exact``;
 ``novel_view`` those of the novel-view stage's ops (``ops.warp``'s
-samplers, the combiner, the window's columns).
+samplers, the combiner, the window's columns); ``blend_distances`` the
+reference's ray boundary rule (``ops.distance.eight_ray_min_distance``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import numpy as np
 import torch
 
 from panorama_opticalflow_tpu_torch.utils.config import FlowParams
-from panorama_opticalflow_tpu_torch.ops.image import (gaussian_blur,
+from panorama_opticalflow_tpu_torch.ops.distance import eight_ray_min_distance
+from panorama_opticalflow_tpu_torch.ops.image import (crop_x, gaussian_blur,
                                                       gaussian_kernel_1d,
                                                       median5 as median5_plain)
 from panorama_opticalflow_tpu_torch.ops.relax_exact import (
@@ -941,9 +945,72 @@ def novel_view(image_l: torch.Tensor, image_r: torch.Tensor,
 
 novel_view.launches = 0
 
+# ---------------------------------------------------------------------------
+# 8. the blend field's eight-ray distances, both classes of a canvas map
+# ---------------------------------------------------------------------------
+
+# canvas map codes of the two pure regions (models.stitcher.match_images)
+CODE_L, CODE_R = 100, 50
+
+
+def blend_distances_plain(codes: torch.Tensor, step: int, max_i: float,
+                          crop: int = 0
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The eight-ray kernel's contract: ``eight_ray_min_distance`` of the
+    pure-L pixels (code 100) and of the pure-R pixels (code 50) of a canvas
+    map, each cut to its columns [crop, W - crop)."""
+    d_l = eight_ray_min_distance(codes == CODE_L, step, max_i)
+    d_r = eight_ray_min_distance(codes == CODE_R, step, max_i)
+    return crop_x(d_l, crop, -1), crop_x(d_r, crop, -1)
+
+
+def blend_distances(codes: torch.Tensor, step: int, max_i: float,
+                    crop: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """The strided eight-ray min distances of a canvas map to its pure-L
+    and to its pure-R pixels: ``codes`` an (H, W) or (N, H, W) uint8 map
+    (any strides; each map of a stack searched alone), the ray stride
+    ``step`` >= 1 and the cut ``max_i``.  Returns float32 (d_l, d_r) of the
+    map's columns [crop, W - crop), +inf where no ray hits, bit for bit
+    ``blend_distances_plain``'s on the same device.  One launch a call."""
+    if not isinstance(codes, torch.Tensor) or codes.dtype != torch.uint8:
+        raise TypeError("blend_distances: codes must be a uint8 tensor")
+    if codes.dim() not in (2, 3) or min(codes.shape) < 1:
+        raise ValueError(f"blend_distances: codes must be a non-empty "
+                         f"(H, W) or (N, H, W) map, got {tuple(codes.shape)}")
+    if int(step) != step or step < 1:
+        raise ValueError(f"blend_distances: step must be an int >= 1, got "
+                         f"{step}")
+    h, w = codes.shape[-2:]
+    if int(crop) != crop or not 0 <= 2 * crop < w:
+        raise ValueError(f"blend_distances: crop {crop} leaves no column of "
+                         f"{w}")
+    dev = codes.device
+    if dev.type == "cpu":
+        return blend_distances_plain(codes, step, max_i, crop)
+    if dev.type != "cuda":
+        raise ValueError(f"blend_distances: unsupported device {dev}")
+    flat = codes if codes.dim() == 3 else codes[None]
+    nb, wout = flat.shape[0], w - 2 * crop
+    out = torch.full((2, nb, h, wout), float("inf"), dtype=torch.float32,
+                     device=dev)
+    # the plain ops compare with max_i and multiply by sqrt(2) as float32
+    # scalars
+    _launch("blend_distances", "pano_eight_ray", flat.data_ptr(),
+            out[0].data_ptr(), out[1].data_ptr(), nb, h, w, *flat.stride(),
+            int(step), int(crop), wout, _f32(max_i), _f32(math.sqrt(2.0)),
+            _stream())
+    blend_distances.launches += 1
+    if codes.dim() == 2:
+        return out[0, 0], out[1, 0]
+    return out[0], out[1]
+
+
+blend_distances.launches = 0
+
 KERNELS = (warp_tiled, relax_phase, median5_diffuse,
            relax_phase_unfused, median5, exact_level, small_relax_phase,
-           small_relax_phase_unfused, small_median5_diffuse, novel_view)
+           small_relax_phase_unfused, small_median5_diffuse, novel_view,
+           blend_distances)
 
 
 def reset_launch_counts() -> None:

@@ -308,7 +308,11 @@ def test_wrappers_take_plain_version_on_cpu(rng):
     bl = T(rng.random((30, 40)).astype(np.float32))
     assert torch.equal(tk.novel_view(il, ir, fl, fr, bl, (35, 40)),
                        tk.novel_view_plain(il, ir, fl, fr, bl, (35, 40)))
-    assert len(tk.KERNELS) == 10
+    codes = T(rng.choice(np.array([0, 50, 100, 150], np.uint8), (2, 30, 60)))
+    assert all(torch.equal(a, b) for a, b in zip(
+        tk.blend_distances(codes, 3, 20.5, 4),
+        tk.blend_distances_plain(codes, 3, 20.5, 4)))
+    assert len(tk.KERNELS) == 11
     assert all(k.launches == 0 for k in tk.KERNELS)
 
 

@@ -17,7 +17,11 @@ csrc/, then runs ten phases and prints one JSON object per phase line:
      four's whole 4000x9000 canvas; blend_distances, every bit equal to
      the two eight-ray searches, on a canvas map at six's 4000x3584 window
      and at four's 4000x12600 wrap-extended canvas, bytes bound at 9 a
-     pixel), at the 9000x4000 headline's finest-level
+     pixel; hole_composite, every byte equal to the composite's ops, on a
+     pair at six's 4000x3584 window across the 9000-wide canvas's seam and
+     on four's whole 4000x9000 canvas, with dense and with sparse holes,
+     bytes bound at 9 a pixel and 4 more a source pixel taken), at the
+     9000x4000 headline's finest-level
      shapes, at a middle
      level of its pyramid and at a ragged small shape, with kernel and
      plain median times (CUDA events; the kernel table keeps the finest
@@ -188,6 +192,7 @@ KERNEL_FILES = {
     "small_median5_diffuse": ("csrc/median5_diffuse.cu", None),
     "novel_view": ("csrc/novel_view.cu", None),
     "blend_distances": ("csrc/eight_ray.cu", None),
+    "hole_composite": ("csrc/hole_composite.cu", None),
 }
 # the 36 MP fidelity harness's schedule knobs (tools/fidelity_36mp.py)
 SCHEDULES = {"production": {},
@@ -315,6 +320,13 @@ B_RAYS = (("six_window", (1, 4000, 3584)), ("four", (1, 4000, 12600)))
 # classes the carried nearest candidate, the distance, its cut and the min
 # 4; the 4 diagonal rays' product by sqrt 2 a class
 RAY_OPS = 8 * 2 * 4 + 4 * 2
+# phase B's composite shapes (1, H, W): a pair at six's window on a
+# 9000-wide canvas, at the chain's first roll (across the seam), and on
+# four's whole canvas (the table keeps four's times, sparse holes)
+B_HOLES = (("six_window", (1, 4000, 3584)), ("four", (1, 4000, 9000)))
+# the composite's operations a pixel: the code 2, its four tests and the
+# select 5 (a hole's walk reads its neighbours, work the bound leaves out)
+HOLE_OPS = 2 + 5
 
 
 def bound(nbytes: int, ops: int) -> dict:
@@ -644,6 +656,86 @@ def ray_cases(dev, rng, b: int, h: int, w: int) -> list[dict]:
                  ops=RAY_OPS * b * h * w)]
 
 
+def hole_pair(dev, seed: int, b: int, h: int, w: int, l_span, r_span,
+              holes: str):
+    """(map, L, R, merged) of b pairs of (h, w) canvases: L's alpha
+    footprint the circular columns l_span = (start, length), R's r_span,
+    their edges wandering down the rows by up to 2 % of w; the merged view
+    opaque on the overlap but for its holes (sparse: 0.2 % of the pixels
+    and a 40 x 60 blob; dense: 40 % and a 600 x 500 blob reaching past the
+    search radius) and on 1 % of the other pixels."""
+    import torch
+
+    from panorama_opticalflow_tpu_torch.models import stitcher
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    y = torch.arange(h, device=dev)[:, None].float()
+    x = torch.arange(w, device=dev)[None, :]
+
+    def footprint(start, length, phase):
+        wob = (0.02 * w * torch.sin(y / (h / 3.0) + phase)).round().long()
+        return ((x - start - wob) % w) < length
+
+    shape = (b, h, w)
+    image_l, image_r, merged = (
+        torch.randint(0, 256, shape + (4,), generator=g, device=dev,
+                      dtype=torch.uint8) for _ in range(3))
+    image_l[..., 3] = torch.where(footprint(*l_span, 0.3),
+                                  image_l[..., 3].clamp(min=1), 0)
+    image_r[..., 3] = torch.where(footprint(*r_span, 1.7),
+                                  image_r[..., 3].clamp(min=1), 0)
+    cmap = stitcher.match_images(image_l, image_r)
+    share, (bh, bw) = (0.002, (40, 60)) if holes == "sparse" else (
+        0.4, (600, 500))
+    u = torch.rand(shape, generator=g, device=dev)
+    hole = u < share
+    x_mid = (r_span[0] + (l_span[0] + l_span[1] - r_span[0]) % w // 2) % w
+    hole[..., h // 2 - bh // 2: h // 2 + bh // 2,
+         max(0, x_mid - bw // 2): x_mid + bw // 2] = True
+    opaque = ((cmap == 150) & ~hole) | (u > 0.99)
+    merged[..., 3] = torch.where(opaque, merged[..., 3].clamp(min=1), 0)
+    return cmap, image_l, image_r, merged
+
+
+def hole_cases(dev, rng, b: int, h: int, width: int) -> list[dict]:
+    """hole_composite on b pairs as gather_composite hands them over: a
+    pair window ``width`` wide at NOVEL_ROLL on a NOVEL_CANVAS_W canvas,
+    its overlap clear of the window's and the canvas's edges (a safe
+    window), or the whole canvas; dense holes, then sparse.  Against its
+    plain version, the composite's PyTorch ops on the card, every byte
+    equal.  Bytes: the map and the merged view read and the output written
+    once, 9 a pixel, and a source pixel read where the code takes one."""
+    import torch
+
+    import panorama_opticalflow_tpu_torch as port
+    from panorama_opticalflow_tpu_torch.ops import kernels
+
+    w = NOVEL_CANVAS_W
+    radius = port.StitchConfig().gather_search_radius
+    if width < w:
+        spans = ((NOVEL_ROLL + 500, 2000), (NOVEL_ROLL + 1300 - w, 2900))
+        window = (torch.full((), NOVEL_ROLL, dtype=torch.int64, device=dev),
+                  width)
+    else:
+        spans, window = ((0, 5000), (4000, 5000)), None
+    cases = []
+    for holes in ("dense", "sparse"):   # the table keeps the last
+        pair = hole_pair(dev, int(rng.integers(1 << 31)), b, h, w, *spans,
+                         holes)
+        if window is not None:
+            pair = tuple(t[0] for t in pair)
+        args = (*pair, radius, window)
+        code = pair[0] + 75 * (pair[3][..., 3] > 0).to(torch.uint8)
+        taken = int(((code == 100) | (code == 50) | (code == 150)).sum())
+        cases.append(dict(
+            name="hole_composite", dims=[b, h, w, width], tol=0.0,
+            variant=f"{holes} holes: {int((code == 150).sum())}",
+            kernel=lambda args=args: kernels.hole_composite(*args),
+            plain=lambda args=args: kernels.hole_composite_plain(*args),
+            nbytes=9 * b * h * w + 4 * taken, ops=HOLE_OPS * b * h * w))
+    return cases
+
+
 def as_tensor(out):
     import torch
 
@@ -665,7 +757,8 @@ def phase_b(dev) -> dict:
               + [(tag, shape, exact_cases) for tag, shape in B_EXACT]
               + [(tag, shape, small_cases) for tag, shape in B_SMALL]
               + [(tag, shape, novel_cases) for tag, shape in B_NOVEL]
-              + [(tag, shape, ray_cases) for tag, shape in B_RAYS])
+              + [(tag, shape, ray_cases) for tag, shape in B_RAYS]
+              + [(tag, shape, hole_cases) for tag, shape in B_HOLES])
     for tag, (b, h, w), cases in shapes:
         for case in cases(dev, rng, b, h, w):
             name = case["name"]
@@ -726,9 +819,11 @@ def phase_b(dev) -> dict:
 
 
 def time_against(other_csrc: str, dev) -> None:
-    """Every kernel of this tree and of the sources in ``other_csrc`` (an
-    earlier commit's csrc/, same C interface) on the same inputs, timed in
-    turns (other, this, this, other) within one process on one card."""
+    """The solver kernels' cases at B_SHAPES, and the composite's at
+    B_HOLES where ``other_csrc`` has it, of this tree and of the sources in
+    ``other_csrc`` (an earlier commit's csrc/ or a variant, same C
+    interface) on the same inputs, timed in turns (other, this, this,
+    other) within one process on one card."""
     import numpy as np
     import torch
 
@@ -737,8 +832,11 @@ def time_against(other_csrc: str, dev) -> None:
     libs = {"other": build.open_library(os.path.abspath(other_csrc)),
             "this": build.load()}
     rng = np.random.default_rng(0)
-    for tag, (b, h, w) in B_SHAPES:
-        for case in kernel_cases(dev, rng, b, h, w):
+    shapes = [(tag, shape, kernel_cases) for tag, shape in B_SHAPES]
+    if hasattr(libs["other"], "pano_hole_composite"):
+        shapes += [(tag, shape, hole_cases) for tag, shape in B_HOLES]
+    for tag, (b, h, w), cases in shapes:
+        for case in cases(dev, rng, b, h, w):
             if case.get("check_only"):
                 continue
             times, outs = {"other": [], "this": []}, {}
@@ -749,11 +847,13 @@ def time_against(other_csrc: str, dev) -> None:
             build.use_library(libs["this"])
             emit({"phase": "time_against", "kernel": case["name"],
                   "shape": tag, "dims": case["dims"],
-                  "iters": case.get("iters"), "other_ms": times["other"],
+                  "iters": case.get("iters"),
+                  "variant": case.get("variant"), "other_ms": times["other"],
                   "this_ms": times["this"],
                   "bit_same_share": (outs["this"] == outs["other"])
                   .float().mean().item(),
-                  "max_abs_diff": (outs["this"] - outs["other"]).abs()
+                  "max_abs_diff": (outs["this"].double()
+                                   - outs["other"].double()).abs()
                   .max().item()})
         torch.cuda.empty_cache()
 
@@ -919,8 +1019,9 @@ def expected_launches(windows, canvas_h: int, params, tiles=None) -> dict:
     coarsest is exact.  The exact level (the coarsest, or the _fast
     presets' init-floor twin) runs exact_level once where a block holds
     it.  Every pair runs novel_view once, a stack of pairs or of row
-    tiles once too, and blend_distances once, a stack of pairs once too
-    (the row-tiled stitch searches its tiles with PyTorch ops).  ``tiles``
+    tiles once too, and blend_distances and hole_composite once, a stack
+    of pairs once too (the row-tiled stitch searches its tiles with
+    PyTorch ops).  ``tiles``
     = (n, TileConfig) counts the row-tiled
     stitch: a level runs tiled or whole by parallel.tiled.tiled_levels,
     and the pallas_min_pixels gate sees the shape its kernels get, a tiled
@@ -946,6 +1047,7 @@ def expected_launches(windows, canvas_h: int, params, tiles=None) -> dict:
         n["exact_level"] += pixflow._exact_kernel_level(*exact, params)
         n["novel_view"] += 1
         n["blend_distances"] += tiles is None
+        n["hole_composite"] += tiles is None
         if tiles is not None:
             nt, tc = tiles
             sizes = [(-(-h // nt) + 2 * tc.level_halo if t else h, w)
@@ -1569,7 +1671,8 @@ KERNEL_SYMBOLS = {"warp_tiled_kernel<": ("warp_tiled",),
                   "median5_kernel<": ("median5",),
                   "exact_level_kernel(": ("exact_level",),
                   "novel_view_kernel<": ("novel_view",),
-                  "eight_ray_kernel(": ("blend_distances",)}
+                  "eight_ray_kernel(": ("blend_distances",),
+                  "hole_composite_kernel(": ("hole_composite",)}
 
 
 def profiled_launches(rows, counted: dict, expected: dict, tag: str) -> dict:

@@ -15,7 +15,6 @@ import torch
 from panorama_opticalflow_tpu_torch.utils.config import StitchConfig
 from panorama_opticalflow_tpu_torch.ops import image as im
 from panorama_opticalflow_tpu_torch.ops import kernels
-from panorama_opticalflow_tpu_torch.ops.distance import two_class_hole_search
 
 
 class StitchContext(NamedTuple):
@@ -184,32 +183,9 @@ def gather_composite(ctx_map: torch.Tensor, image_l: torch.Tensor,
     ``window`` = (roll, width) runs the hole search on that column window
     (bit-identical when crop.gather_window_safe holds).  Without a window
     the arguments may be stacks with a leading N: the canvases are then
-    composited together, each as alone."""
-    w = ctx_map.shape[-1]
-    merged_a = im.threshold_binary(merged_middle[..., 3], 0, 75)
-    code = ctx_map + merged_a
-    r = cfg.gather_search_radius
-    black = torch.zeros(4, dtype=torch.uint8, device=image_l.device)
-    black[3:].fill_(255)
-
-    def hole_from(codes, img_l, img_r):
-        found, take_l = two_class_hole_search(codes == 100, codes == 50, r)
-        return torch.where(found[..., None],
-                           torch.where(take_l[..., None], img_l, img_r),
-                           black)
-
-    if window is None:
-        hole = hole_from(code, image_l, image_r)
-    else:
-        roll, width = window
-        hole = place_cols(hole_from(window_cols(code, roll, width),
-                                    window_cols(image_l, roll, width),
-                                    window_cols(image_r, roll, width)),
-                          roll, w)
-
-    zero = torch.zeros((4,), dtype=torch.uint8, device=image_l.device)
-    out = torch.where((code == 100)[..., None], image_l, zero)
-    out = torch.where((code == 50)[..., None], image_r, out)
-    is_merged = (code == 225) | (code == 175) | (code == 125)
-    out = torch.where(is_merged[..., None], merged_middle, out)
-    return torch.where((code == 150)[..., None], hole, out)
+    composited together, each as alone.  The stage is
+    ``ops.kernels.hole_composite``: on a card one kernel launch a call
+    that walks the rays from each hole pixel, for a pair or the whole
+    stack; on the CPU its plain version."""
+    return kernels.hole_composite(ctx_map, image_l, image_r, merged_middle,
+                                  cfg.gather_search_radius, window)

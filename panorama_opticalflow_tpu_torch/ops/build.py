@@ -63,6 +63,7 @@ _SIGNATURES = {
                                                           _p], _i),
     "pano_eight_ray": ([_p] * 3 + [_i] * 3 + [_ll] * 3 + [_i] * 3
                        + [_f, _f, _p], _i),
+    "pano_hole_composite": ([_p] * 5 + [_i] * 3 + [_p, _ll, _i, _i, _p], _i),
 }
 
 

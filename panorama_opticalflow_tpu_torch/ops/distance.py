@@ -228,7 +228,10 @@ def two_class_hole_search(mask_l: torch.Tensor, mask_r: torch.Tensor,
     (N, H, W) for N canvases searched together.  ``row0_excluded`` marks
     the pixels of the canvas's row 0, invisible to -y rays; by default
     the array's row 0 (row tiles pass where global row 0 lies).  Returns
-    (found, take_l)."""
+    (found, take_l).  Exact for ``radius`` up to 256 (the passes' sums
+    stay below int16's 32767).  It is the contract of the composite
+    kernel (``ops.kernels.hole_composite``, whose plain version calls it)
+    and the row-tiled path's search (``parallel.tiled._tiled_gather``)."""
     inf = torch.full(mask_l.shape, _I16_INF, dtype=torch.int16,
                      device=mask_l.device)
     v0 = torch.where(mask_l, torch.zeros_like(inf),

@@ -16,6 +16,7 @@ wrapper                        replaces (reference Pallas kernel)      plain ver
 ``small_median5_diffuse``      none: kernel work beyond the reference  ``small_median5_diffuse_plain``
 ``novel_view``                 none: kernel work beyond the reference  ``novel_view_plain``
 ``blend_distances``            none: kernel work beyond the reference  ``blend_distances_plain``
+``hole_composite``             none: kernel work beyond the reference  ``hole_composite_plain``
 =============================  ======================================  =================================
 
 A wrapper checks its inputs and raises on anything the kernel does not
@@ -37,7 +38,9 @@ so that a small level gives the plain branch's bits on the card;
 ``exact_level`` those of the exact loop, ``ops.relax_exact``;
 ``novel_view`` those of the novel-view stage's ops (``ops.warp``'s
 samplers, the combiner, the window's columns); ``blend_distances`` the
-reference's ray boundary rule (``ops.distance.eight_ray_min_distance``).
+reference's ray boundary rule (``ops.distance.eight_ray_min_distance``);
+``hole_composite`` the hole search's (``ops.distance.
+two_class_hole_search``) and the window's columns.
 """
 
 from __future__ import annotations
@@ -49,10 +52,12 @@ import numpy as np
 import torch
 
 from panorama_opticalflow_tpu_torch.utils.config import FlowParams
-from panorama_opticalflow_tpu_torch.ops.distance import eight_ray_min_distance
+from panorama_opticalflow_tpu_torch.ops.distance import (
+    eight_ray_min_distance, two_class_hole_search)
 from panorama_opticalflow_tpu_torch.ops.image import (crop_x, gaussian_blur,
                                                       gaussian_kernel_1d,
-                                                      median5 as median5_plain)
+                                                      median5 as median5_plain,
+                                                      threshold_binary)
 from panorama_opticalflow_tpu_torch.ops.relax_exact import (
     _as_planes, _blur_flow, _from_planes, low_alpha_flow_diffusion,
     relax_iteration)
@@ -1007,10 +1012,138 @@ def blend_distances(codes: torch.Tensor, step: int, max_i: float,
 
 blend_distances.launches = 0
 
+# ---------------------------------------------------------------------------
+# 9. the final composite, with the overlap holes' eight-ray search
+# ---------------------------------------------------------------------------
+
+# the largest search radius the plain version's int16 doubling field holds
+# exactly: its sentinel 32000 plus 2 (2^p - 1), for the 2^p >= radius its
+# passes reach, stays below 32767
+HOLE_RADIUS_MAX = 256
+
+
+def hole_composite_plain(ctx_map: torch.Tensor, image_l: torch.Tensor,
+                         image_r: torch.Tensor, merged: torch.Tensor,
+                         radius: int, window: tuple | None = None
+                         ) -> torch.Tensor:
+    """The composite kernel's contract: code = map + 75 (merged alpha >
+    0); 100 -> L, 50 -> R, {225, 175, 125} -> merged, 150 -> the fill of
+    ``ops.distance.two_class_hole_search`` at ``radius`` on the window's
+    columns (``models.stitcher.window_cols``, placed back by
+    ``place_cols``: 0 outside the window) or on the whole canvas, opaque
+    black where it finds nothing; any other code 0."""
+    merged_a = threshold_binary(merged[..., 3], 0, 75)
+    code = ctx_map + merged_a
+    black = torch.zeros(4, dtype=torch.uint8, device=image_l.device)
+    black[3:].fill_(255)
+
+    def hole_from(codes, img_l, img_r):
+        found, take_l = two_class_hole_search(codes == CODE_L,
+                                              codes == CODE_R, radius)
+        return torch.where(found[..., None],
+                           torch.where(take_l[..., None], img_l, img_r),
+                           black)
+
+    if window is None:
+        hole = hole_from(code, image_l, image_r)
+    else:
+        from panorama_opticalflow_tpu_torch.models.stitcher import (
+            place_cols, window_cols)
+
+        roll, width = window
+        hole = place_cols(hole_from(window_cols(code, roll, width),
+                                    window_cols(image_l, roll, width),
+                                    window_cols(image_r, roll, width)),
+                          roll, ctx_map.shape[-1])
+
+    zero = torch.zeros((4,), dtype=torch.uint8, device=image_l.device)
+    out = torch.where((code == CODE_L)[..., None], image_l, zero)
+    out = torch.where((code == CODE_R)[..., None], image_r, out)
+    is_merged = (code == 225) | (code == 175) | (code == 125)
+    out = torch.where(is_merged[..., None], merged, out)
+    return torch.where((code == 150)[..., None], hole, out)
+
+
+def _rgba_rows(t: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """``t`` as a contiguous (N, H, W, 4) stack whose pixels are 4-byte
+    aligned (the kernel loads a pixel as one word)."""
+    t = t.reshape(shape).contiguous()
+    return t.clone() if t.data_ptr() % 4 else t
+
+
+def hole_composite(ctx_map: torch.Tensor, image_l: torch.Tensor,
+                   image_r: torch.Tensor, merged: torch.Tensor, radius: int,
+                   window: tuple | None = None) -> torch.Tensor:
+    """The final composite of a pair, or of a stack of N pairs: the canvas
+    map (..., H, W) and the canvases L, R and the merged view (..., H, W,
+    4), all uint8; the hole search's ``radius`` (1 to HOLE_RADIUS_MAX); the
+    search's window (roll, width) with the roll an int or a 0-d int64
+    tensor on the canvases' device (read there, never on the host), for
+    one pair only; no window is the whole canvas.  Returns the (..., H, W,
+    4) uint8 composite, bit for bit ``hole_composite_plain``'s on the same
+    device.  One launch a call."""
+    args = {"ctx_map": ctx_map, "image_l": image_l, "image_r": image_r,
+            "merged": merged}
+    for key, t in args.items():
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.uint8:
+            raise TypeError(f"hole_composite: {key} must be a uint8 tensor")
+    if ctx_map.dim() not in (2, 3) or min(ctx_map.shape) < 1:
+        raise ValueError(f"hole_composite: ctx_map must be a non-empty "
+                         f"(H, W) or (N, H, W) map, got "
+                         f"{tuple(ctx_map.shape)}")
+    dev = ctx_map.device
+    for key in ("image_l", "image_r", "merged"):
+        t = args[key]
+        if tuple(t.shape) != tuple(ctx_map.shape) + (4,):
+            raise ValueError(f"hole_composite: {key} has shape "
+                             f"{tuple(t.shape)}, expected "
+                             f"{tuple(ctx_map.shape) + (4,)}")
+        if t.device != dev:
+            raise ValueError(f"hole_composite: {key} is on {t.device}, not "
+                             f"{dev}")
+    if int(radius) != radius or not 1 <= radius <= HOLE_RADIUS_MAX:
+        raise ValueError(f"hole_composite: radius must be an int in [1, "
+                         f"{HOLE_RADIUS_MAX}], got {radius}")
+    h, w = ctx_map.shape[-2:]
+    roll, width = (0, w) if window is None else window
+    if window is not None and ctx_map.dim() != 2:
+        raise ValueError("hole_composite: a window takes one pair, not a "
+                         "stack")
+    if not 1 <= width <= w:
+        raise ValueError(f"hole_composite: window width {width} outside "
+                         f"[1, {w}]")
+    if isinstance(roll, torch.Tensor) and (
+            roll.dtype != torch.int64 or roll.numel() != 1
+            or roll.device != dev):
+        raise ValueError(f"hole_composite: a tensor roll must be one int64 "
+                         f"on {dev}")
+    if dev.type == "cpu":
+        return hole_composite_plain(ctx_map, image_l, image_r, merged,
+                                    int(radius), window)
+    if dev.type != "cuda":
+        raise ValueError(f"hole_composite: unsupported device {dev}")
+    codes = ctx_map.reshape(-1, h, w).contiguous()
+    nb = codes.shape[0]
+    img_l, img_r, mrg = (_rgba_rows(t, (nb, h, w, 4))
+                         for t in (image_l, image_r, merged))
+    out = torch.empty((nb, h, w, 4), dtype=torch.uint8, device=dev)
+    tensor_roll = isinstance(roll, torch.Tensor)
+    _launch("hole_composite", "pano_hole_composite", codes.data_ptr(),
+            img_l.data_ptr(), img_r.data_ptr(), mrg.data_ptr(),
+            out.data_ptr(), nb, h, w,
+            roll.data_ptr() if tensor_roll else None,
+            0 if tensor_roll else int(roll), int(width), int(radius),
+            _stream())
+    hole_composite.launches += 1
+    return out.reshape(image_l.shape)
+
+
+hole_composite.launches = 0
+
 KERNELS = (warp_tiled, relax_phase, median5_diffuse,
            relax_phase_unfused, median5, exact_level, small_relax_phase,
            small_relax_phase_unfused, small_median5_diffuse, novel_view,
-           blend_distances)
+           blend_distances, hole_composite)
 
 
 def reset_launch_counts() -> None:

@@ -312,7 +312,12 @@ def test_wrappers_take_plain_version_on_cpu(rng):
     assert all(torch.equal(a, b) for a, b in zip(
         tk.blend_distances(codes, 3, 20.5, 4),
         tk.blend_distances_plain(codes, 3, 20.5, 4)))
-    assert len(tk.KERNELS) == 11
+    cmap = T(rng.choice(np.array([0, 50, 100, 150], np.uint8), (30, 60)))
+    merged = T(rng.integers(0, 256, (30, 60, 4), dtype=np.uint8))
+    assert torch.equal(tk.hole_composite(cmap, il, ir, merged, 7, (35, 40)),
+                       tk.hole_composite_plain(cmap, il, ir, merged, 7,
+                                               (35, 40)))
+    assert len(tk.KERNELS) == 12
     assert all(k.launches == 0 for k in tk.KERNELS)
 
 
